@@ -12,6 +12,9 @@ from repro.configs import get_config, reduced
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: paper-scale simulations (minutes, not seconds)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -3,17 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from src/repro_torch/csrc/, holds it against
-its plain torch version at the test shapes and at Frontera's fabric, then
-drives the main path through the entry points a user calls:
+Builds the port's CUDA kernels from src/repro_torch/csrc/ (one nvcc per
+source, all at once) and holds each against its plain torch version, then
+drives each main path through the entry points a user calls, with the
+launch counts set to 0 just before it and read just after:
 
-  * the max-min fair allocation of Frontera's HPL panel broadcast
-    (``waterfill``, which runs the kernel once per iteration);
-  * ``get_workload("hpl").predict(get_platform(p))`` for bdw-local,
-    tpu-v5e-pod, syn-mp-2pod-v5e and Frontera (N=9,282,848, 88x91 grid,
-    24,175 panels), against the reference package's simulated times;
-  * a 64-lane Frontera what-if grid and a mixed-geometry forced-bucket
-    sweep through ``sweep_hpl``, against the single runs.
+  * HPL prediction: the max-min fair allocation of Frontera's panel
+    broadcast (``waterfill``, which runs ``masked_min_rows`` once per
+    iteration); ``get_workload("hpl").predict(get_platform(p))`` for
+    bdw-local, tpu-v5e-pod, syn-mp-2pod-v5e and Frontera (N=9,282,848,
+    88x91 grid, 24,175 panels) against the reference package's simulated
+    times; a 64-lane Frontera what-if grid and a mixed-geometry
+    forced-bucket sweep through ``sweep_hpl``, against the single runs.
+  * LM serving: ``ServeEngine`` on qwen2-0.5b at full width (24 layers,
+    d_model 896, 14 query heads in 2 KV groups, vocab 151,936) with seeded
+    random weights, 8 requests of 128 prompt tokens and 32 new tokens in
+    4 slots; prefill runs ``flash_attention_fwd`` once per layer.  Then a
+    4 x 2048 prefill and 16 decode steps with and without the kernel,
+    compared in float32 and bfloat16, and two planted faults that the
+    comparison must catch.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -22,6 +30,8 @@ repository's src/ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -48,9 +58,27 @@ TOL = {"bdw-local": 1e-12, "tpu-v5e-pod": 1e-12, "syn-mp-2pod-v5e": 1e-12,
        "frontera": 1e-10}
 # Published HBM rate of one H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), FLOP/s: bf16 on
+# the tensor cores, float32 on the CUDA cores.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (F, L, density): tests/test_kernels.py's shapes, then a ragged one
 TEST_SHAPES = [(64, 128, 0.1), (256, 256, 0.03), (8, 128, 0.5),
                (1000, 300, 0.05)]
+# (B, S, G, R, hd): tests/test_kernels.py's flash shapes, a ragged one, and
+# qwen2-0.5b's 4 x 2048 prefill
+FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
+                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64)]
+FLASH_PREFILL = (4, 2048, 2, 7, 64)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LM_ARCH = "qwen2-0.5b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 8, 128, 32, 4
+PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
+# Kernel against plain path, largest gap over the plain path's largest
+# magnitude, across prefill logits, the K/V cache and 16 decode steps.
+# float32: the kernel agrees with its plain version to ~1e-6, so 1e-4
+# leaves room for 24 layers of growth; bfloat16 rounds activations to 8
+# mantissa bits at other places in the two paths.
+PREFILL_LIMIT = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 class SmokeFailure(Exception):
@@ -218,6 +246,227 @@ def forced_bucket_phase(dev, singles):
           f"panels_per_s={panels / wall:.1f}", flush=True)
 
 
+def flash_bound_ms(shape, causal, dtype):
+    """The least time for the attention products at ``shape``: the FLOPs
+    this call needs (the causal key count of each row, 2 x 2 per element
+    of q.k and p.v) at the peak rate for ``dtype``, or q, k, v and the
+    output moved once at the HBM rate, whichever is larger."""
+    b, s, g, r, hd = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * g * r * hd * pairs
+    nbytes = (2 * b * s * g * r * hd + 2 * b * s * g * hd) * (
+        torch.finfo(dtype).bits // 8)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flash_inputs(shape, dtype, dev, seed):
+    b, s, g, r, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, s, g, r, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(b, s, g, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(b, s, g, hd, generator=gen, device=dev).to(dtype))
+
+
+def check_flash(shape, causal, dtype, dev, seed):
+    """Kernel against plain version on the same inputs; returns the
+    inputs and the max abs error."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    q, k, v = flash_inputs(shape, dtype, dev, seed)
+    out_k = flash_attention_fwd(q, k, v, causal=causal)
+    out_p = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(out_k.shape == q.shape and out_k.dtype == dtype,
+          f"flash_attention {shape}: output {tuple(out_k.shape)} "
+          f"{out_k.dtype}")
+    check(bool(torch.isfinite(out_k.float()).all()),
+          f"flash_attention {shape}: non-finite output")
+    err = float((out_k.float() - out_p.float()).abs().max())
+    tol = FLASH_TOL[dtype]
+    print(f"flash_attention {shape} causal={causal} {dtype}: "
+          f"max_abs_err={err} (tol {tol})", flush=True)
+    check(torch.allclose(out_k.float(), out_p.float(), atol=tol, rtol=tol),
+          f"flash_attention {shape} causal={causal} {dtype}: kernel != "
+          f"plain (max abs err {err})")
+    return (q, k, v), err
+
+
+def flash_phase(dev):
+    """(a) the flash kernel against its plain version at the test shapes,
+    then timed at qwen2-0.5b's prefill shape beside the plain version and
+    scaled_dot_product_attention (the library yardstick, never on the
+    port's path)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    seed = 0
+    for shape in FLASH_SHAPES:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                check_flash(shape, causal, dtype, dev, seed)
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v), err = check_flash(FLASH_PREFILL, True, dtype, dev, 99)
+        b, s, g, r, hd = FLASH_PREFILL
+        qs = q.reshape(b, s, g * r, hd).transpose(1, 2)
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True))
+        library_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                          enable_gqa=True))
+        bound_ms, bound_by = flash_bound_ms(FLASH_PREFILL, True, dtype)
+        print(f"flash_attention {FLASH_PREFILL} causal {dtype}: "
+              f"ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"library_ms(sdpa)={library_ms:.6f} bound_ms={bound_ms:.6f} "
+              f"({bound_by}) max_abs_err={err}", flush=True)
+        if dtype == torch.bfloat16:
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+    return rec
+
+
+def lm_params(cfg, dev):
+    from repro_torch.models import build_model
+    return build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+
+
+def serve_phase(dev, cfg, params):
+    """(b) the main path: ServeEngine on full-width qwen2-0.5b.  Launch
+    counts are 0 just before the run and read just after."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_PROMPT + SERVE_NEW, device=dev)
+    eng.warm(SERVE_PROMPT)          # the first call's one-time set-up
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+        max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    before = dict(eng.stats)
+    flash_attention_fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_fwd.launches
+    stats = {k: eng.stats[k] - before[k] for k in eng.stats}
+    tokens = sum(len(t) for t in out.values())
+    print(f"serve {cfg.name}: {SERVE_REQUESTS} requests x prompt "
+          f"{SERVE_PROMPT} + {SERVE_NEW} new, {SERVE_SLOTS} slots: {tokens} "
+          f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s, stats "
+          f"{stats}, flash_attention_fwd launches={launches}", flush=True)
+    waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    check(stats == {"prefills": SERVE_REQUESTS,
+                    "decode_steps": waves * (SERVE_NEW - 1),
+                    "tokens_out": SERVE_REQUESTS * SERVE_NEW},
+          f"serve: stats {stats}")
+    check(all(len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size
+                                          for x in t) for t in out.values()),
+          "serve: a request's tokens are missing or outside the vocab")
+    check(launches == cfg.num_layers * stats["prefills"],
+          f"serve: flash_attention_fwd launched {launches} times, not "
+          f"{cfg.num_layers} x {stats['prefills']} prefills")
+    return launches
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """A fault in the kernel path: layer 12's attention output zeroed, or
+    the causal mask off in every layer."""
+    from repro_torch.kernels.flash_attention import ops
+    real = ops.flash_attention
+    calls = []
+
+    def faulty(q, k, v, causal=True):
+        calls.append(None)
+        if fault == "no_causal_mask":
+            return real(q, k, v, causal=False)
+        out = real(q, k, v, causal=causal)
+        return torch.zeros_like(out) if len(calls) == 13 else out
+    ops.flash_attention = faulty
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def run_prefill(cfg, params, dev, use_kernel, tokens, steps):
+    """4 x 2048 prefill then ``steps`` decode steps on fixed tokens;
+    returns the prefill wall seconds and every tensor to compare."""
+    from repro_torch.models import build_model
+    model = build_model(cfg, use_kernel=use_kernel, device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(params, {"tokens": tokens[:, :-steps]},
+                                      max_len=tokens.shape[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs = [logits, cache["k"].clone(), cache["v"].clone()]
+        for i in range(steps):
+            n = tokens.shape[1] - steps + i
+            cache, logits = model.decode(params, cache, tokens[:, n:n + 1])
+            outs.append(logits)
+        outs += [cache["k"], cache["v"]]
+    check(all(bool(torch.isfinite(t.float()).all()) for t in outs),
+          f"prefill {cfg.dtype} use_kernel={use_kernel}: non-finite output")
+    return wall, outs
+
+
+def gap(outs, ref):
+    """Largest gap over the reference's largest magnitude, across all."""
+    return max(float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) for a, b in zip(outs, ref))
+
+
+def prefill_phase(dev, cfg, params):
+    """(c) full-width prefill with the kernel against the plain path, in
+    float32 and bfloat16, and two planted faults that must read above the
+    limit that passes the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_B, PREFILL_S + PREFILL_DECODE),
+                           generator=gen, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        limit = PREFILL_LIMIT[dtype]
+        run_prefill(c, params, dev, True, tokens, PREFILL_DECODE)   # warm
+        plain_wall, ref = run_prefill(c, params, dev, False, tokens,
+                                      PREFILL_DECODE)
+        kern_wall, outs = run_prefill(c, params, dev, True, tokens,
+                                      PREFILL_DECODE)
+        plain_wall2, _ = run_prefill(c, params, dev, False, tokens,
+                                     PREFILL_DECODE)
+        kern_wall2, _ = run_prefill(c, params, dev, True, tokens,
+                                    PREFILL_DECODE)
+        g = gap(outs, ref)
+        faults = {}
+        for fault in ("layer_12_attention_zeroed", "no_causal_mask"):
+            with planted(fault):
+                faults[fault] = gap(run_prefill(c, params, dev, True, tokens,
+                                                PREFILL_DECODE)[1], ref)
+        print(f"prefill {cfg.name} {PREFILL_B}x{PREFILL_S} {dtype}: "
+              f"wall_s kernel={kern_wall:.4f},{kern_wall2:.4f} "
+              f"plain={plain_wall:.4f},{plain_wall2:.4f}; kernel vs plain "
+              f"gap={g:.3e} (limit {limit}) over logits, K/V cache and "
+              f"{PREFILL_DECODE} decode steps; planted faults read "
+              + ", ".join(f"{k}={v:.3e}" for k, v in faults.items()),
+              flush=True)
+        check(g <= limit, f"prefill {dtype}: kernel vs plain gap {g} > "
+                          f"{limit}")
+        for k, v in faults.items():
+            check(v > limit, f"prefill {dtype}: planted fault {k} reads "
+                             f"{v}, within the limit {limit}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -245,11 +494,14 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_libraries(["maxmin_fair"])
-    _build.load_library("maxmin_fair")
-    print(f"kernel build: maxmin_fair.cu in "
+    sources = ["maxmin_fair", "flash_attention"]
+    _build.build_libraries(sources)
+    for name in sources:
+        _build.load_library(name)
+    print(f"kernel build: {', '.join(n + '.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    print(_build.build_log("maxmin_fair").strip(), flush=True)
+    for name in sources:
+        print(_build.build_log(name).strip(), flush=True)
 
     from repro_torch.core.apps.hpl import HPLConfig
     from repro_torch.core.fastsim import FastSimParams, simulate_hpl_fast
@@ -306,6 +558,14 @@ def main() -> int:
           f"conservation ok, min_rate={float(rates_k.min())!r} "
           f"max_rate={float(rates_k.max())!r}", flush=True)
 
+    # ---- LM serving: qwen2-0.5b at full width, flash attention in prefill
+    from repro_torch.configs import get_config
+    flash_rec = flash_phase(dev)
+    cfg = get_config(LM_ARCH)
+    params = lm_params(cfg, dev)
+    flash_launches = serve_phase(dev, cfg, params)
+    prefill_phase(dev, cfg, params)
+
     kernels = [{
         "name": "masked_min_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/maxmin_fair.cu",
@@ -313,7 +573,11 @@ def main() -> int:
         "launches": launches, "max_abs_err": frontera_rec["max_abs_err"],
         "ms": frontera_rec["ms"], "plain_ms": frontera_rec["plain_ms"],
         "bound_ms": frontera_rec["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
+        "launches": flash_launches, **flash_rec}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,4 @@
+"""Language models (the dense family so far): port of ``repro.models``."""
+from .lm import Model, build_model, param_layout
+
+__all__ = ["Model", "build_model", "param_layout"]

@@ -1,0 +1,196 @@
+"""Model assembly for the dense family.
+
+Port of ``repro.models.lm.Model`` for ``family == "dense"``; the other
+families raise ``NotImplementedError`` naming the slice that ports them.
+Same methods as the reference, on nested dicts of tensors::
+
+  init(generator) -> params                 forward(params, batch) -> (logits, aux)
+  init_cache(batch, max_len) -> cache       prefill(params, batch, max_len) -> (cache, logits)
+  decode(params, cache, tokens) -> (cache, logits)
+
+Layer parameters are stacked on a leading layer axis, as in the
+reference, so converting a reference tree is a copy; the layer stack is a
+Python loop over that axis (the reference's ``lax.scan``).  The
+reference's ``constrain`` (a sharding constraint) is the identity on one
+device and is left out; remat is a training concern and is not ported.
+``cache["len"]`` is a Python int, and ``decode`` writes the KV cache in
+place (the reference donates it to a jitted step).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+from torch import nn
+
+from repro_torch._device import DeviceLike, resolve_device
+
+from . import layers as L
+
+Params = Dict[str, Any]
+
+# the slice of the port that brings each family the dense slice leaves out
+_UNPORTED = {"ssm": "slice 8b", "moe": "slice 8c", "hybrid": "slice 8c",
+             "encdec": "slice 8c", "vlm": "slice 8c"}
+
+
+def _check_family(cfg) -> None:
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(
+            f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is "
+            f"not ported yet ({_UNPORTED[cfg.family]}); only 'dense' is")
+    if cfg.family != "dense":
+        raise ValueError(cfg.family)
+
+
+def _stacked(layout, n: int):
+    """Prepend a layer axis of ``n`` to every leaf shape of a layout."""
+    return {k: _stacked(v, n) if isinstance(v, dict)
+            else ((n,) + tuple(v[0]), v[1]) for k, v in layout.items()}
+
+
+def layer_layout(cfg) -> L.Layout:
+    return {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
+            "attn": L.layout_attention(cfg),
+            "ln2": L.layout_norm(cfg.d_model, cfg.norm),
+            "mlp": L.layout_mlp(cfg)}
+
+
+def param_layout(cfg) -> L.Layout:
+    """Every parameter's (shape, init kind), layers stacked on axis 0: the
+    reference's ``Model.init`` tree, shape for shape."""
+    _check_family(cfg)
+    return {"embed": L.layout_embed(cfg),
+            "final_norm": L.layout_norm(cfg.d_model, cfg.norm),
+            "layers": _stacked(layer_layout(cfg), cfg.num_layers)}
+
+
+def _layer(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s parameters (views) from the stacked tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+class Model(nn.Module):
+    """A dense decoder-only LM on ``device`` (default ``"cuda"``, which
+    raises without a card).  ``use_kernel`` sends full-sequence attention
+    (``forward``, ``prefill``) through the flash-attention kernel."""
+
+    def __init__(self, cfg, use_kernel: bool = False,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        _check_family(cfg)
+        self.cfg = cfg
+        self.use_kernel = use_kernel
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        self.param_dtype = getattr(torch, cfg.param_dtype)
+
+    # ------------------------------------------------------------- params
+    def init(self, generator: torch.Generator) -> Params:
+        """Random parameters drawn from ``generator`` (a CPU or CUDA
+        generator; the tensors land on the model's device)."""
+        cfg = self.cfg
+        layout = param_layout(cfg)
+        p = {k: L.init_from_layout(layout[k], generator, self.device,
+                                   self.param_dtype)
+             for k in ("embed", "final_norm")}
+        p["layers"] = L.init_from_layout(layer_layout(cfg), generator,
+                                         self.device, self.param_dtype,
+                                         lead=(cfg.num_layers,))
+        return p
+
+    def _layers(self, params: Params) -> List[Params]:
+        return [_layer(params["layers"], i)
+                for i in range(self.cfg.num_layers)]
+
+    # ------------------------------------------------------------ forward
+    def _embed_inputs(self, params: Params, batch):
+        """Returns (x, positions, loss_mask, labels)."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], dtype=torch.long,
+                                 device=self.device)
+        b, s = tokens.shape
+        x = L.apply_embed(params["embed"], tokens, cfg)
+        labels = torch.roll(tokens, -1, dims=1)
+        mask = (torch.arange(s, device=self.device) < s - 1).float()
+        mask = mask[None, :].expand(b, s)
+        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        return x, positions, mask, labels
+
+    def _dense_layer_fwd(self, p_l: Params, x: torch.Tensor, positions):
+        cfg = self.cfg
+        h = L.apply_norm(p_l["ln1"], x, cfg.norm)
+        a, kv = L.apply_attention(p_l["attn"], h, cfg, positions,
+                                  use_kernel=self.use_kernel)
+        x = x + a
+        h = L.apply_norm(p_l["ln2"], x, cfg.norm)
+        return x + L.apply_mlp(p_l["mlp"], h, cfg), kv
+
+    def forward(self, params: Params, batch):
+        """Teacher-forcing forward.  Returns (logits, (aux, mask, labels));
+        aux is 0 (it is the MoE balance loss)."""
+        cfg = self.cfg
+        x, positions, mask, labels = self._embed_inputs(params, batch)
+        for p_l in self._layers(params):
+            x, _ = self._dense_layer_fwd(p_l, x, positions)
+        x = L.apply_norm(params["final_norm"], x, cfg.norm)
+        logits = L.apply_unembed(params["embed"], x, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return logits, (aux, mask, labels)
+
+    # -------------------------------------------------------------- cache
+    def init_cache(self, batch_size: int, max_len: int) -> Params:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, max_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"len": 0,
+                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+
+    # ------------------------------------------------------------ prefill
+    def prefill(self, params: Params, batch, max_len: int):
+        """Process the full prompt; returns (cache, last-token logits)."""
+        cfg = self.cfg
+        x, positions, _, _ = self._embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        if s > max_len:
+            raise ValueError(f"prefill: prompt of {s} tokens > max_len "
+                             f"{max_len}")
+        cache = self.init_cache(b, max_len)
+        for i, p_l in enumerate(self._layers(params)):
+            x, (k, v) = self._dense_layer_fwd(p_l, x, positions)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+        cache["len"] = s
+        x = L.apply_norm(params["final_norm"], x, cfg.norm)
+        logits = L.apply_unembed(params["embed"], x[:, -1:, :], cfg)
+        return cache, logits[:, 0, :]
+
+    # ------------------------------------------------------------- decode
+    def decode(self, params: Params, cache: Params, tokens):
+        """One decode step. tokens: (B, 1) -> (cache, logits (B, V)); the
+        cache is updated in place and returned."""
+        cfg = self.cfg
+        pos = cache["len"]
+        if pos >= cache["k"].shape[2]:
+            raise ValueError(f"decode: the cache of {cache['k'].shape[2]} "
+                             "positions is full")
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        x = L.apply_embed(params["embed"], tokens, cfg)
+        for i, p_l in enumerate(self._layers(params)):
+            h = L.apply_norm(p_l["ln1"], x, cfg.norm)
+            a, _ = L.apply_attention_decode(p_l["attn"], h, cfg,
+                                            cache["k"][i], cache["v"][i], pos)
+            x = x + a
+            h = L.apply_norm(p_l["ln2"], x, cfg.norm)
+            x = x + L.apply_mlp(p_l["mlp"], h, cfg)
+        cache["len"] = pos + 1
+        x = L.apply_norm(params["final_norm"], x, cfg.norm)
+        logits = L.apply_unembed(params["embed"], x, cfg)
+        return cache, logits[:, 0, :]
+
+
+def build_model(cfg, use_kernel: bool = False,
+                device: DeviceLike = "cuda") -> Model:
+    return Model(cfg, use_kernel=use_kernel, device=device)

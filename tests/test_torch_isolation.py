@@ -8,13 +8,18 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.apps.hpl import HPLConfig
 from repro_torch.core.fastsim import (simulate_hpl_fast, simulate_time_traced,
                                       sweep_hpl)
-from repro_torch.convert import fastsim_params_from_numpy
+from repro_torch.convert import (fastsim_params_from_numpy,
+                                 lm_params_from_reference)
+from repro_torch.models import build_model
+from repro_torch.serve import ServeEngine
 from repro_torch.platforms import get_platform
 from repro_torch.workloads import get_workload
 
@@ -33,10 +38,15 @@ loaded = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 from repro_torch.kernels.maxmin_fair import masked_min_rows, waterfill
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_fwd)
 import torch
 adj = torch.ones((8, 16), dtype=torch.int8)
 waterfill(adj, torch.ones(16))
 assert masked_min_rows.launches == 0, masked_min_rows.launches
+flash_attention(torch.ones(1, 4, 1, 2, 32), torch.ones(1, 4, 1, 32),
+                torch.ones(1, 4, 1, 32))
+assert flash_attention_fwd.launches == 0, flash_attention_fwd.launches
 print(len(names))
 """
 
@@ -77,6 +87,7 @@ def _entry_points():
     cfg = plat.hpl_config()
     prm = plat.fastsim()
     model = get_workload("hpl").fastsim_model(plat)
+    lm = reduced(get_config("qwen2-0.5b"))
     return {
         "simulate_hpl_fast": lambda: simulate_hpl_fast(cfg, prm),
         "sweep_hpl": lambda: sweep_hpl(cfg, [prm, prm]),
@@ -86,7 +97,32 @@ def _entry_points():
         "FastModel.sweep": lambda: model.sweep([prm]),
         "fastsim_params_from_numpy": lambda: fastsim_params_from_numpy(
             {n: 1.0 for n in prm.__dataclass_fields__}),
+        "build_model": lambda: build_model(lm),
+        "ServeEngine": lambda: ServeEngine(lm, {}),
+        "lm_params_from_reference": lambda: lm_params_from_reference(
+            _lm_tree(lm), lm),
     }
+
+
+def _lm_tree(cfg):
+    """A parameter tree of the right shapes (zeros), as plain numpy."""
+    from repro_torch.models import param_layout
+
+    def zeros(layout):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros(v[0])
+                for k, v in layout.items()}
+    return zeros(param_layout(cfg))
+
+
+@pytest.mark.parametrize("name", ["build_model", "ServeEngine",
+                                  "lm_params_from_reference"])
+def test_lm_entry_points_run_on_the_cpu_when_asked(name):
+    lm = reduced(get_config("qwen2-0.5b"))
+    call = {"build_model": lambda: build_model(lm, device="cpu"),
+            "ServeEngine": lambda: ServeEngine(lm, {}, device="cpu"),
+            "lm_params_from_reference": lambda: lm_params_from_reference(
+                _lm_tree(lm), lm, device="cpu")}[name]
+    assert call() is not None
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

@@ -18,10 +18,12 @@ launch counts set to 0 just before it and read just after:
   * LM serving: ``ServeEngine`` on qwen2-0.5b at full width (24 layers,
     d_model 896, 14 query heads in 2 KV groups, vocab 151,936) with seeded
     random weights, 8 requests of 128 prompt tokens and 32 new tokens in
-    4 slots; prefill runs ``flash_attention_fwd`` once per layer.  Then a
-    4 x 2048 prefill and 16 decode steps with and without the kernel,
-    compared in float32 and bfloat16, and two planted faults that the
-    comparison must catch.
+    4 slots; prefill runs ``flash_attention_fwd`` once per layer.  The
+    same requests then go through the engine built without the kernel
+    (the reference engine's build), in bfloat16 and in float32, and the
+    greedy tokens must agree.  Then a 4 x 2048 prefill and 16 decode steps
+    with and without the kernel, compared in float32 and bfloat16, and two
+    planted faults that the comparison must catch.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -33,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -64,14 +67,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (F, L, density): tests/test_kernels.py's shapes, then a ragged one
 TEST_SHAPES = [(64, 128, 0.1), (256, 256, 0.03), (8, 128, 0.5),
                (1000, 300, 0.05)]
-# (B, S, G, R, hd): tests/test_kernels.py's flash shapes, a ragged one, and
-# qwen2-0.5b's 4 x 2048 prefill
-FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
-                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64)]
-FLASH_PREFILL = (4, 2048, 2, 7, 64)
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_ARCH = "qwen2-0.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 8, 128, 32, 4
+# (B, S, G, R, hd): tests/test_kernels.py's flash shapes, a ragged one, the
+# shape ServeEngine gives the kernel (one 128-token prompt at a time), and
+# qwen2-0.5b's 4 x 2048 prefill
+FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
+                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64),
+                (1, SERVE_PROMPT, 2, 7, 64)]
+FLASH_PREFILL = (4, 2048, 2, 7, 64)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# unit roundoff of bfloat16 (8 significand bits)
+BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
 # Kernel against plain path, largest gap over the plain path's largest
 # magnitude, across prefill logits, the K/V cache and 16 decode steps.
@@ -269,9 +276,42 @@ def flash_inputs(shape, dtype, dev, seed):
             torch.randn(b, s, g, hd, generator=gen, device=dev).to(dtype))
 
 
+def visible_mask(sq, sk, causal, dev):
+    """(sq, sk) bool: the keys each query position sees."""
+    if not causal:
+        return torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    return (torch.arange(sk, device=dev)[None, :]
+            <= torch.arange(sq, device=dev)[:, None])
+
+
+def bf16_exact(q, k, v, mask):
+    """What the bf16 kernel computes, in float64 on its own inputs (q scaled
+    and rounded to bfloat16 as the kernel does it), over the keys ``mask``
+    allows.  Returns (out, P @ |V|)."""
+    qs = (q.float() * (1.0 / math.sqrt(q.shape[4]))).to(q.dtype).double()
+    s = torch.einsum("bqgrk,bsgk->bgrqs", qs, k.double())
+    p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
+    return (torch.einsum("bgrqs,bsgk->bqgrk", p, v.double()),
+            torch.einsum("bgrqs,bsgk->bqgrk", p, v.double().abs()))
+
+
+def bf16_excess(out, exact, mag):
+    """The largest |out - exact| over its bound, element by element.  The
+    bf16 kernel rounds each probability to bfloat16 before P @ V (at most
+    u * (P @ |V|) in all) and its output once (at most one ulp of the
+    value it rounds); 1.05 leaves room for float32 sums.  At most 1:
+    within the bound."""
+    slack = BF16_U * mag
+    _, e = torch.frexp(exact.abs() + slack)
+    ulp = torch.ldexp(torch.ones_like(exact), e - 8)
+    return float(((out.double() - exact).abs() / (1.05 * slack + ulp)).max())
+
+
 def check_flash(shape, causal, dtype, dev, seed):
-    """Kernel against plain version on the same inputs; returns the
-    inputs and the max abs error."""
+    """Kernel against plain version on the same inputs, and in bf16 also
+    element by element against ``bf16_exact`` within ``bf16_excess``'s
+    bound; returns the inputs, the max abs error and, in bf16, the exact
+    output and P @ |V|."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
     q, k, v = flash_inputs(shape, dtype, dev, seed)
@@ -290,7 +330,39 @@ def check_flash(shape, causal, dtype, dev, seed):
     check(torch.allclose(out_k.float(), out_p.float(), atol=tol, rtol=tol),
           f"flash_attention {shape} causal={causal} {dtype}: kernel != "
           f"plain (max abs err {err})")
-    return (q, k, v), err
+    exact = None
+    if dtype == torch.bfloat16:
+        exact = bf16_exact(q, k, v, visible_mask(shape[1], shape[1], causal,
+                                                 dev))
+        excess = bf16_excess(out_k, *exact)
+        print(f"flash_attention {shape} causal={causal} {dtype}: element "
+              f"bound max |err| / bound = {excess:.4f} (limit 1)", flush=True)
+        check(excess <= 1.0, f"flash_attention {shape} causal={causal} "
+                             f"{dtype}: an element is {excess} x its bound")
+    return (q, k, v), err, exact
+
+
+def planted_tile_faults(q, k, v, exact):
+    """A bf16 check at the causal prefill shape must reject a kernel that
+    loses one 64-key tile for the last 64 query positions: its diagonal
+    tile, or the first tile.  Such outputs move by far less than the 2e-2
+    absolute limit; the element bound must catch them."""
+    s = q.shape[1]
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    causal, late = kpos <= qpos, qpos >= s - 64
+    faults = {
+        "last_rows_skip_diagonal_tile": causal & ~(late & (kpos >= s - 64)),
+        "last_rows_skip_first_tile": causal & ~(late & (kpos < 64))}
+    for name, mask in faults.items():
+        out = bf16_exact(q, k, v, mask)[0].to(q.dtype)
+        excess = bf16_excess(out, *exact)
+        err = float((out.double() - exact[0]).abs().max())
+        print(f"flash_attention planted fault {name}: max_abs_err={err:.4e} "
+              f"(absolute limit {FLASH_TOL[q.dtype]}) element bound max "
+              f"|err| / bound = {excess:.4f}", flush=True)
+        check(excess > 1.0, f"flash_attention: planted fault {name} reads "
+                            f"{excess} x the bound, within it")
 
 
 def flash_phase(dev):
@@ -308,7 +380,11 @@ def flash_phase(dev):
                 check_flash(shape, causal, dtype, dev, seed)
     rec = {}
     for dtype in (torch.bfloat16, torch.float32):
-        (q, k, v), err = check_flash(FLASH_PREFILL, True, dtype, dev, 99)
+        (q, k, v), err, exact = check_flash(FLASH_PREFILL, True, dtype, dev,
+                                            99)
+        if dtype == torch.bfloat16:
+            planted_tile_faults(q, k, v, exact)
+        del exact
         b, s, g, r, hd = FLASH_PREFILL
         qs = q.reshape(b, s, g * r, hd).transpose(1, 2)
         ks, vs = k.transpose(1, 2), v.transpose(1, 2)
@@ -335,20 +411,68 @@ def lm_params(cfg, dev):
         torch.Generator(device=dev).manual_seed(0))
 
 
-def serve_phase(dev, cfg, params):
-    """(b) the main path: ServeEngine on full-width qwen2-0.5b.  Launch
-    counts are 0 just before the run and read just after."""
+def serve_requests(cfg):
+    """The seeded requests of the serve phase (fresh objects each call)."""
     import numpy as np
 
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
+        max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+
+
+def compare_served(dev, cfg, params, out):
+    """The tokens ``out`` served with the kernel against the same requests
+    served by the engine built without it.  Each request's tokens must be
+    equal, or part where the plain path's two candidates are a near-tie:
+    their logits within ``PREFILL_LIMIT`` (the kernel-vs-plain gap allowed
+    for the dtype) of the logits' largest magnitude."""
+    from repro_torch.serve import ServeEngine
+    plain = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_PROMPT + SERVE_NEW, use_kernel=False,
+                        device=dev)
+    reqs = serve_requests(cfg)
+    ref = plain.run(reqs)
+    check(sorted(out) == sorted(ref) and all(
+        len(out[r]) == len(ref[r]) for r in ref),
+        f"serve {cfg.dtype}: token counts differ")
+    limit = PREFILL_LIMIT[cfg.dtype]
+    same = 0
+    for r in reqs:
+        t = next((t for t, (a, b) in enumerate(zip(out[r.rid], ref[r.rid]))
+                  if a != b), None)
+        if t is None:
+            same += 1
+            continue
+        prefix = [int(x) for x in r.prompt] + ref[r.rid][:t]
+        with torch.inference_mode():
+            logits = plain.model.prefill(params, {"tokens": torch.tensor(
+                [prefix], device=dev)}, max_len=len(prefix))[1][0]
+        logits = logits[:cfg.vocab_size].float()
+        a, b = ref[r.rid][t], out[r.rid][t]
+        tie = float((logits[a] - logits[b]).abs() / logits.abs().max())
+        print(f"serve {cfg.name} {cfg.dtype}: request {r.rid} first differs "
+              f"at token {t} (plain {a}, kernel {b}); their logits differ "
+              f"by {tie:.3e} of scale (near-tie limit {limit})", flush=True)
+        check(tie <= limit, f"serve {cfg.dtype}: kernel and plain engines "
+                            f"differ at request {r.rid} token {t}, not a "
+                            f"near-tie ({tie} > {limit})")
+    print(f"serve {cfg.name} {cfg.dtype}: kernel and plain engines served "
+          f"the same tokens for {same} of {len(reqs)} requests", flush=True)
+
+
+def serve_phase(dev, cfg, params):
+    """(b) the main path: ServeEngine on full-width qwen2-0.5b.  Launch
+    counts are 0 just before the run and read just after.  Then the same
+    requests through the engine without the kernel, in the config's bf16
+    and in float32."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
                       max_len=SERVE_PROMPT + SERVE_NEW, device=dev)
     eng.warm(SERVE_PROMPT)          # the first call's one-time set-up
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
-        max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    reqs = serve_requests(cfg)
     before = dict(eng.stats)
     flash_attention_fwd.launches = 0
     torch.cuda.synchronize()
@@ -374,6 +498,12 @@ def serve_phase(dev, cfg, params):
     check(launches == cfg.num_layers * stats["prefills"],
           f"serve: flash_attention_fwd launched {launches} times, not "
           f"{cfg.num_layers} x {stats['prefills']} prefills")
+    compare_served(dev, cfg, params, out)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    out32 = ServeEngine(c32, params, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_PROMPT + SERVE_NEW,
+                        device=dev).run(serve_requests(c32))
+    compare_served(dev, c32, params, out32)
     return launches
 
 

@@ -172,19 +172,20 @@ def _attn_mask(sq: int, sk: int, causal: bool, q_offset: int,
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal=True,
         q_offset: int = 0, kv_len: Optional[int] = None,
-        block_size: int = 1024) -> torch.Tensor:
+        block_size: Optional[int] = 1024) -> torch.Tensor:
     """Plain attention in torch ops, grouped layout throughout (no KV-head
     expansion).  q: (B, Sq, G, R, hd); k, v: (B, Sk, G, hd).  kv_len:
     positions >= kv_len are masked (decode cache).  Scores in the input
     dtype, softmax in float32.  The direct path materializes the scores;
     when Sk is a multiple of ``block_size`` above it, the blockwise path
-    walks KV blocks with an online softmax.  Returns (B, Sq, G, R, hd)."""
+    walks KV blocks with an online softmax (``block_size=None``: always
+    the direct path).  Returns (B, Sq, G, R, hd)."""
     b, sq, g, r, hd = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     qg = (q * scale).to(q.dtype)
 
-    if sk <= block_size or sk % block_size != 0:
+    if block_size is None or sk <= block_size or sk % block_size != 0:
         # direct path (small S / decode / non-divisible lengths)
         scores = torch.einsum("bqgrk,bsgk->bgrqs", qg, k).float()
         if causal or kv_len is not None:
@@ -255,8 +256,7 @@ def apply_attention_decode(p: Params, x: torch.Tensor, cfg,
     k_cache[:, cache_len] = k[:, 0].to(k_cache.dtype)
     v_cache[:, cache_len] = v[:, 0].to(v_cache.dtype)
     out = mha(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
-              kv_len=cache_len + 1,
-              block_size=1 << 62)  # direct path; masking handles validity
+              kv_len=cache_len + 1, block_size=None)
     return _out_proj(p, out, x.dtype), (k_cache, v_cache)
 
 

@@ -149,7 +149,9 @@ print(json.dumps({"tokens": {str(k): v for k, v in out.items()},
 """
 
 
-def test_serve_engine_matches_reference(ref_params):
+@pytest.fixture(scope="module")
+def ref_serve():
+    """Prompts, and the reference engine's tokens, stats and warm report."""
     _, cfg = _cfg_pair("float32")
     prompts = _tokens(3, (len(NEW_TOKENS), 10), cfg.vocab_size).tolist()
     payload = {"arch": ARCH, "slots": 4, "max_len": MAX_LEN, "warm": [10],
@@ -162,20 +164,39 @@ def test_serve_engine_matches_reference(ref_params):
                           input=json.dumps(payload), capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    return prompts, json.loads(proc.stdout.strip().splitlines()[-1])
 
+
+def _serve(ref_params, prompts, **kw):
+    _, cfg = _cfg_pair("float32")
     params = lm_params_from_reference(ref_params, cfg, device="cpu")
     eng = ServeEngine(cfg, params, batch_slots=4, max_len=MAX_LEN,
-                      device="cpu")
-    assert eng.model.use_kernel          # the port's engine default
+                      device="cpu", **kw)
     warm = eng.warm([10])
     out = eng.run([Request(rid=i, prompt=np.asarray(p, np.int32),
                            max_new_tokens=n)
                    for i, (p, n) in enumerate(zip(prompts, NEW_TOKENS))])
-    assert {str(k): v for k, v in out.items()} == want["tokens"]
     assert [len(out[i]) for i in range(len(NEW_TOKENS))] == NEW_TOKENS
+    return eng, {str(k): v for k, v in out.items()}, warm
+
+
+def test_serve_engine_matches_reference(ref_params, ref_serve):
+    prompts, want = ref_serve
+    eng, out, warm = _serve(ref_params, prompts)
+    assert eng.model.use_kernel          # the port's engine default
+    assert out == want["tokens"]
     assert eng.stats == want["stats"]
     assert warm == want["warm"]
+
+
+def test_plain_serve_engine_matches_reference(ref_params, ref_serve):
+    """``use_kernel=False`` builds the reference engine's model: plain
+    attention in prefill, the same tokens and stats."""
+    prompts, want = ref_serve
+    eng, out, warm = _serve(ref_params, prompts, use_kernel=False)
+    assert not eng.model.use_kernel
+    assert (out, eng.stats, warm) == (want["tokens"], want["stats"],
+                                      want["warm"])
 
 
 @pytest.mark.parametrize("name,slice_", [

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the port's main paths spend their time, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--only hpl|lm]
+    python3 chip_profile.py [--only hpl|lm|ssm]
 
 HPL: Frontera's geometry (88 x 91 grid, nb=384, bucket P_max = Q_max =
 96) cut to 512 panels, at 1 lane and at 64 what-if lanes, through
 ``sweep_hpl``.  LM: full-width qwen2-0.5b with seeded weights, as
 ``ServeEngine`` runs it: a 1 x 128 prefill, a decode step of a 4-slot
 wave with a 160-position cache, and a 4 x 2048 prefill, each with the
-flash-attention kernel.  For each it prints the wall time per step (host
-clock, ending in a device sync) and, from ``torch.profiler`` over one more
-run, the CUDA kernels launched per step, the device busy share (summed
-kernel time over the profiled wall time) and, for the LM, the kernels
-that take the most device time.  The last line is one JSON object of
+flash-attention kernel.  SSM: full-width mamba2-780m in bf16 with seeded
+weights: a 4 x 2048 ``Model.forward`` with the SSD chunk-scan kernel (the
+scoring path of ``Model.loss``), and a decode step of a 4-slot wave after
+a 128-token prefill (as ``ServeEngine`` runs it).  For each it prints the
+wall time per step (host clock, ending in a device sync) and, from
+``torch.profiler`` over one more run, the CUDA kernels launched per step,
+the device busy share (summed kernel time over the profiled wall time)
+and, for the LM and SSM cases, the kernels that take the most device
+time.  The last line is one JSON object of
 those numbers with the card's name and power limit.  Needs a CUDA
 device; exits non-zero without one.
 """
@@ -104,12 +108,46 @@ def profile_lm(dev, out):
                 f"{k}={v}" for k, v in rec.items()), flush=True)
 
 
+def profile_ssm(dev, out):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg, use_kernel=True, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    long = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
+                         device=dev)
+    n_decode = 16
+
+    def forward():
+        model.forward(params, {"tokens": long})
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        cache, _ = model.prefill(params, {"tokens": long[:, :128]},
+                                 max_len=160)
+        step_tokens = long[:, :1]
+
+        def decode():
+            for _ in range(n_decode):
+                model.decode(params, cache, step_tokens)
+            torch.cuda.synchronize()
+
+        cases = {"forward_4x2048": (forward, 1),
+                 f"decode_4slots_x{n_decode}": (decode, n_decode)}
+        for name, (run, steps) in cases.items():
+            rec = profiled(run, steps)
+            out[f"ssm_{name}"] = rec
+            print(f"mamba2-780m {name}: " + " ".join(
+                f"{k}={v}" for k, v in rec.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("hpl", "lm"))
+    parser.add_argument("--only", choices=("hpl", "lm", "ssm"))
     only = parser.parse_args().only
     sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -123,9 +161,11 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     out = {"card": card}
-    if only != "hpl":
+    if only in (None, "lm"):
         profile_lm(dev, out)
-    if only == "lm":
+    if only in (None, "ssm"):
+        profile_ssm(dev, out)
+    if only in ("lm", "ssm"):
         print(json.dumps(out), flush=True)
         return 0
     plat = get_platform("frontera")

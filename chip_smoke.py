@@ -24,6 +24,20 @@ launch counts set to 0 just before it and read just after:
     greedy tokens must agree.  Then a 4 x 2048 prefill and 16 decode steps
     with and without the kernel, compared in float32 and bfloat16, and two
     planted faults that the comparison must catch.
+  * Mamba-2 scoring and serving: the SSD chunk-scan kernel against its
+    plain version at the kernel tests' shapes, mamba2-780m's 4 x 2048
+    forward shape, a ragged S and an S below the chunk, in float32 and
+    bfloat16, and element by element against its own function evaluated
+    in float64 within a derived rounding bound, with two planted faults
+    that must break both; ``Model.loss`` of mamba2-780m at full width (48
+    layers, d_model 1536, 48 heads of 64, N 128, vocab 50,280, seeded
+    weights) on 4 x 2048 tokens with the kernel (48 launches a forward)
+    against the plain chunked scan, in float32 and bfloat16, with the
+    same two faults planted in the model; then ``ServeEngine`` on the
+    same model (4 requests of 128 prompt and 16 new tokens, 4 slots),
+    which runs prefill and decode without the kernel, as the reference's
+    engine does, and a float32 check that prefill's last logits equal the
+    kernel forward's.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -86,6 +100,26 @@ PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
 # leaves room for 24 layers of growth; bfloat16 rounds activations to 8
 # mantissa bits at other places in the two paths.
 PREFILL_LIMIT = {"float32": 1e-4, "bfloat16": 5e-2}
+SSM_ARCH = "mamba2-780m"
+# (B, S, H, P, N, chunk): tests/test_kernels.py's SSD shapes; mamba2-780m's
+# 4 x 2048 forward; a ragged S and an S below the chunk at the model's widths
+SSD_SHAPES = [(1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),
+              (1, 256, 2, 64, 16, 64), (1, 128, 2, 32, 128, 128)]
+SSD_MODEL = (4, 2048, 48, 64, 128, 256)
+SSD_RAGGED = [(1, 300, 48, 64, 128, 256), (2, 100, 48, 64, 128, 256)]
+# rtol, atol of the reference's kernel test (tests/test_kernels.py)
+SSD_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (5e-2, 5e-1)}
+# unit roundoff of float32 (24 significand bits)
+F32_U = 2.0 ** -24
+SSM_B, SSM_S = 4, 2048
+SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT, SSM_SERVE_NEW, SSM_SERVE_SLOTS = (
+    4, 128, 16, 4)
+# Kernel against plain path for mamba2-780m, largest gap over the plain
+# path's largest magnitude across logits and loss: float32 differs only in
+# summation order (1e-4 leaves room for 48 layers); in bfloat16 the plain
+# path rounds the scan's (Q, Q) tiles to bf16 while the kernel stays
+# float32, as in the reference.
+SSM_LIMIT = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 class SmokeFailure(Exception):
@@ -530,7 +564,9 @@ def planted(fault):
 
 def run_prefill(cfg, params, dev, use_kernel, tokens, steps):
     """4 x 2048 prefill then ``steps`` decode steps on fixed tokens;
-    returns the prefill wall seconds and every tensor to compare."""
+    returns the prefill wall seconds and every tensor to compare (logits
+    over the real vocabulary: the padded entries are -1e30 in both paths
+    and would set the scale of the comparison)."""
     from repro_torch.models import build_model
     model = build_model(cfg, use_kernel=use_kernel, device=dev)
     with torch.inference_mode():
@@ -540,11 +576,12 @@ def run_prefill(cfg, params, dev, use_kernel, tokens, steps):
                                       max_len=tokens.shape[1])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        outs = [logits, cache["k"].clone(), cache["v"].clone()]
+        v = cfg.vocab_size
+        outs = [logits[:, :v], cache["k"].clone(), cache["v"].clone()]
         for i in range(steps):
             n = tokens.shape[1] - steps + i
             cache, logits = model.decode(params, cache, tokens[:, n:n + 1])
-            outs.append(logits)
+            outs.append(logits[:, :v])
         outs += [cache["k"], cache["v"]]
     check(all(bool(torch.isfinite(t.float()).all()) for t in outs),
           f"prefill {cfg.dtype} use_kernel={use_kernel}: non-finite output")
@@ -597,6 +634,427 @@ def prefill_phase(dev, cfg, params):
                              f"{v}, within the limit {limit}")
 
 
+def ssd_inputs(shape, dtype, dev, seed):
+    """x, B, C normal in ``dtype``; dt = softplus(normal) and A = -exp(normal)
+    in float32: the reference kernel test's distributions."""
+    b, s, h, p, n, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*size):
+        return torch.randn(*size, generator=gen, device=dev)
+    x = normal(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, h))
+    A = -torch.exp(normal(h))
+    return x, dt, A, normal(b, s, h, n).to(dtype), normal(b, s, h, n).to(dtype)
+
+
+def ssd_exact(xh, dt, A, Bh, Ch, chunk):
+    """The kernel's function in float64 on its own inputs (dt * A rounded to
+    float32 as the kernel forms it), and a bound on how far the kernel's
+    float32 arithmetic may land from it before the output is rounded.
+
+    The bound follows the kernel's operations, with u = 2^-24: each dot
+    product of length K is off by at most K u of its sum of absolute terms
+    (C B^T and C h^T over N, the output sum over the chunk's Q positions,
+    the state sum over Q); each exp by 2 ulp (4 u) plus its argument's
+    error; each product or sum by u.  The exponents come from the chunk's
+    cumulative sum of dt * A, which the kernel forms by a two-level scan
+    (at most 13 roundings on any path, all terms of one sign):
+    |d cum| <= 16 u |cum|.  Errors
+    carried in the state are tracked from chunk to chunk.  Returns
+    (y, bound), both (B, S, H, P) float64."""
+    b, s, h, p = xh.shape
+    n = Bh.shape[-1]
+    q = min(chunk, s)
+    u = F32_U
+
+    def heads_first(t):
+        return t.double().movedim(2, 1)
+    x, Bd, Cd = heads_first(xh), heads_first(Bh), heads_first(Ch)
+    adt, dtd = heads_first(dt * A), heads_first(dt)
+    state = torch.zeros(b, h, p, n, dtype=torch.float64, device=xh.device)
+    s_abs, s_err = torch.zeros_like(state), torch.zeros_like(state)
+    ys, errs = [], []
+    for c0 in range(0, s, q):
+        sl = slice(c0, min(c0 + q, s))
+        m = sl.stop - c0
+        xq, Bq, Cq, dq = x[:, :, sl], Bd[:, :, sl], Cd[:, :, sl], dtd[:, :, sl]
+        cum = torch.cumsum(adt[:, :, sl], dim=-1)                 # (B,H,m)
+        ac = cum.abs()
+        ecum = 16 * u * ac + u * ac         # scan error + the subtraction's
+        last, elast = cum[..., -1:], ecum[..., -1:]
+        causal = torch.ones(m, m, dtype=torch.bool,
+                            device=xh.device).tril()
+        L = torch.where(causal, torch.exp(cum[..., :, None]
+                                          - cum[..., None, :]), 0.0)
+        W = L * dq[..., None, :]
+        K = (Cq.abs() @ Bq.abs().transpose(-1, -2)) * W           # |M| terms
+        xa = xq.abs()
+        Ce = Cq * torch.exp(cum)[..., None]
+        inter_mag = Ce.abs() @ s_abs.transpose(-1, -2)
+        y = ((Cq @ Bq.transpose(-1, -2)) * W) @ xq + Ce @ state.transpose(
+            -1, -2)
+        Kx = K @ xa
+        err = (Kx * ((n + 8) * u + ecum[..., None])
+               + (K * ecum[..., None, :]) @ xa
+               + inter_mag * ((n + 8) * u + ecum[..., None])
+               + Ce.abs() @ s_err.transpose(-1, -2)
+               + (q + 1) * u * (Kx + inter_mag))
+        ys.append(y)
+        errs.append(err)
+        dec = torch.exp(last - cum) * dq                          # (B,H,m)
+        Sq = xq.transpose(-1, -2) @ (Bq * dec[..., None])
+        Sa = xa.transpose(-1, -2) @ (Bq.abs() * dec[..., None])
+        Se = xa.transpose(-1, -2) @ (Bq.abs() * (dec * ecum)[..., None])
+        el, eel = torch.exp(last)[..., None], elast[..., None]
+        new_abs = el * s_abs + Sa
+        s_err = (el * s_err + el * s_abs * (6 * u + eel)
+                 + Sa * ((q + 8) * u + eel) + Se + u * new_abs)
+        state = el * state + Sq
+        s_abs = new_abs
+    return (torch.cat(ys, dim=2).movedim(1, 2),
+            torch.cat(errs, dim=2).movedim(1, 2))
+
+
+def ssd_excess(out, exact, bound):
+    """The largest |out - exact| over its bound plus one ulp of the output
+    dtype at the exact value (the kernel rounds y once).  At most 1: within
+    the bound."""
+    bits = {torch.float32: 24, torch.bfloat16: 8}[out.dtype]
+    _, e = torch.frexp(exact.abs() + bound)
+    ulp = torch.ldexp(torch.ones_like(exact), e - bits)
+    return float(((out.double() - exact).abs() / (bound + ulp)).max())
+
+
+def ssd_plain_excess(out, plain):
+    """The largest |out - plain| over the test's limit atol + rtol |plain|.
+    At most 1: within the limit."""
+    rtol, atol = SSD_TOL[plain.dtype]
+    return float(((out.float() - plain.float()).abs()
+                  / (atol + rtol * plain.float().abs())).max())
+
+
+def ssd_bound_ms(shape, dtype):
+    """The least time for the scan at ``shape``: its FLOPs with causal
+    skipping (C B^T and M x over the Q(Q+1)/2 pairs i >= j of each chunk,
+    C h^T and x^T B over all positions), all in float32 on the CUDA cores,
+    or x, B, C, dt, A and y moved once, whichever is larger."""
+    b, s, h, p, n, chunk = shape
+    q = min(chunk, s)
+    flops = 0
+    for c0 in range(0, s, q):
+        m = min(q, s - c0)
+        flops += 2 * m * (m + 1) // 2 * (n + p) + 4 * m * n * p
+    flops *= b * h
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * s * h * p + 2 * b * s * h * n) * size + 4 * (
+        b * s * h + h)
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes"), flops
+
+
+def check_ssd(shape, dtype, dev, seed):
+    """Kernel against plain version within the test limits, and element by
+    element against ``ssd_exact`` within its bound; returns the inputs, the
+    max abs error, the plain output and the exact output with its bound."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    inputs = ssd_inputs(shape, dtype, dev, seed)
+    chunk = shape[-1]
+    out = ssd_scan(*inputs, chunk)
+    plain = ssd_scan_ref(*inputs, chunk)
+    torch.cuda.synchronize()
+    check(out.shape == inputs[0].shape and out.dtype == dtype,
+          f"ssd_scan {shape}: output {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out.float()).all()),
+          f"ssd_scan {shape} {dtype}: non-finite output")
+    err = float((out.float() - plain.float()).abs().max())
+    within = ssd_plain_excess(out, plain)
+    exact = ssd_exact(*inputs, chunk)
+    excess = ssd_excess(out, *exact)
+    print(f"ssd_scan {shape} {dtype}: max_abs_err={err:.4e} vs plain "
+          f"(|err| / test limit {within:.4f}, limit 1); element bound max "
+          f"|err| / bound = {excess:.4f} (limit 1)", flush=True)
+    check(within <= 1.0, f"ssd_scan {shape} {dtype}: kernel != plain "
+                         f"({within} x the test limit)")
+    check(excess <= 1.0, f"ssd_scan {shape} {dtype}: an element is {excess} "
+                         "x its bound")
+    return inputs, err, plain, exact
+
+
+def planted_ssd_outputs(inputs, chunk):
+    """The kernel's output with a fault planted around the call: the state
+    dropped at the chunk boundary in the middle of S (the kernel run on the
+    two halves), or head 0's decay rate A doubled."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, A, B, C = inputs
+    half = x.shape[1] // 2
+    halves = [ssd_scan(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], chunk)
+              for sl in (slice(0, half), slice(half, None))]
+    A2 = A.clone()
+    A2[0] *= 2
+    return {"state_dropped_mid_sequence": torch.cat(halves, dim=1),
+            "head_0_decay_doubled": ssd_scan(x, dt, A2, B, C, chunk)}
+
+
+def ssd_phase(dev):
+    """(d) the SSD kernel against its plain version and its float64 function
+    at every checked shape, two planted faults at the model's shape, and
+    times at the model's shape (bf16, the config's dtype, in the record)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    seed = 200
+    for shape in SSD_SHAPES + SSD_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed += 1
+            check_ssd(shape, dtype, dev, seed)
+    rec = {}
+    chunk = SSD_MODEL[-1]
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs, err, plain, exact = check_ssd(SSD_MODEL, dtype, dev, 299)
+        for name, out in planted_ssd_outputs(inputs, chunk).items():
+            excess = ssd_excess(out, *exact)
+            within = ssd_plain_excess(out, plain)
+            print(f"ssd_scan planted fault {name} {dtype}: element bound "
+                  f"max |err| / bound = {excess:.4e}; |err| / test limit "
+                  f"{within:.4e}", flush=True)
+            check(excess > 1.0 and within > 1.0,
+                  f"ssd_scan: planted fault {name} ({dtype}) reads {excess} "
+                  f"x the bound and {within} x the test limit, not above "
+                  "both")
+        del exact, plain
+        ms = cuda_ms(lambda: ssd_scan(*inputs, chunk))
+        plain_ms = cuda_ms(lambda: ssd_scan_ref(*inputs, chunk))
+        bound_ms, bound_by, flops = ssd_bound_ms(SSD_MODEL, dtype)
+        print(f"ssd_scan {SSD_MODEL} {dtype}: ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}, "
+              f"{flops:.4e} FLOPs with causal skipping at float32 peak) "
+              f"achieved_tflops={flops / ms * 1e-9:.2f} max_abs_err={err}",
+              flush=True)
+        if dtype == torch.bfloat16:
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return rec
+
+
+@contextlib.contextmanager
+def planted_ssd(fault):
+    """A fault in the model's kernel path, in every layer: the state
+    dropped at the middle of the sequence, or head 0's A doubled."""
+    from repro_torch.kernels.ssd_scan import ops
+    real = ops.ssd
+
+    def faulty(xh, dt, A, Bh, Ch, chunk=256):
+        if fault == "state_dropped_mid_sequence":
+            half = xh.shape[1] // 2
+            return torch.cat([real(xh[:, sl], dt[:, sl], A, Bh[:, sl],
+                                   Ch[:, sl], chunk)
+                              for sl in (slice(0, half), slice(half, None))],
+                             dim=1)
+        A2 = A.clone()
+        A2[0] *= 2
+        return real(xh, dt, A2, Bh, Ch, chunk)
+    ops.ssd = faulty
+    try:
+        yield
+    finally:
+        ops.ssd = real
+
+
+@contextlib.contextmanager
+def scan_gaps(gaps):
+    """Every ``ops.ssd`` call in the block (one a layer) also runs the
+    plain path's chunked scan on the same inputs; appends each layer's
+    largest gap over the plain output's largest magnitude, and prints the
+    scan's share of the mixer (its RMS over that of x, the D skip term's
+    input: D is 1 at init)."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models.mamba2 import ssd_chunked
+    inner = ops.ssd
+    shares = []
+
+    def recording(xh, dt, A, Bh, Ch, chunk=256):
+        y = inner(xh, dt, A, Bh, Ch, chunk)
+        ref = ssd_chunked(xh, dt, A, Bh, Ch, chunk)[0].float()
+        gaps.append(float((y.float() - ref).abs().max() / ref.abs().max()))
+        shares.append(float(ref.square().mean().sqrt()
+                            / xh.float().square().mean().sqrt()))
+        return y
+    ops.ssd = recording
+    try:
+        yield
+    finally:
+        ops.ssd = inner
+    if shares:
+        print(f"ssm scan share of the mixer (RMS of the scan over RMS of x) "
+              f"across {len(shares)} layers: min {min(shares):.3e} max "
+              f"{max(shares):.3e}", flush=True)
+
+
+def logits_gap(logits, ref_logits, vocab):
+    """The logits' largest gap over their largest magnitude, over the real
+    vocabulary (the padded entries are -1e30 in both)."""
+    a, b = logits[..., :vocab].float(), ref_logits[..., :vocab].float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def ssm_gap(logits, loss, layers, ref_logits, ref_loss, vocab):
+    """The largest of the logits' gap, the loss's relative gap and every
+    layer's scan gap."""
+    return max([logits_gap(logits, ref_logits, vocab),
+                abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))]
+               + layers)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def ssm_loss_phase(dev, cfg, params):
+    """(e) the main path of the kernel: ``Model.loss`` of mamba2-780m on
+    4 x 2048 tokens with the kernel, its launch count read around the
+    bfloat16 run (the config's dtype), against the plain chunked scan in
+    float32 and bfloat16; two planted faults; in float32, prefill's last
+    logits against the kernel forward's last position.  The comparison
+    covers the logits, the loss and each layer's scan output: with the
+    reference's init the scan is under 1% of each mixer's output (dt is
+    about 0.016 and D is 1), so its faults move the logits far less than
+    the scan itself."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import build_model
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SSM_B, SSM_S),
+                                     generator=gen, device=dev)}
+    launches = None
+    f32_logits = None
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        kern = build_model(c, use_kernel=True, device=dev)
+        plain = build_model(c, use_kernel=False, device=dev)
+        limit = SSM_LIMIT[dtype]
+        kern.loss(params, batch)                        # warm
+        ssd_scan.launches = 0
+        (loss_k, met_k), wall_k = timed(lambda: kern.loss(params, batch))
+        n = ssd_scan.launches
+        print(f"ssm loss {cfg.name} {SSM_B}x{SSM_S} {dtype}: ssd_scan "
+              f"launches={n} loss={float(loss_k)!r} "
+              f"tokens={float(met_k['tokens'])}", flush=True)
+        check(n == cfg.num_layers, f"ssm loss {dtype}: ssd_scan launched "
+                                   f"{n} times, not {cfg.num_layers}")
+        if dtype == cfg.dtype:
+            launches = n
+        (loss_p, _), wall_p = timed(lambda: plain.loss(params, batch))
+        _, wall_k2 = timed(lambda: kern.loss(params, batch))
+        _, wall_p2 = timed(lambda: plain.loss(params, batch))
+        vocab = cfg.vocab_size
+        with torch.inference_mode():
+            logits_p = plain.forward(params, batch)[0]
+            layers = []
+            with scan_gaps(layers):
+                logits_k = kern.forward(params, batch)[0]
+            check(bool(torch.isfinite(logits_k.float()).all())
+                  and bool(torch.isfinite(loss_k)),
+                  f"ssm loss {dtype}: non-finite output")
+            g = ssm_gap(logits_k, loss_k, layers, logits_p, loss_p, vocab)
+            out = ssm_gap(logits_k, loss_k, [], logits_p, loss_p, vocab)
+            print(f"ssm loss {dtype}: kernel vs plain, logits and loss "
+                  f"only: {out:.3e}; largest layer scan gap "
+                  f"{max(layers):.3e}", flush=True)
+            faults = {}
+            for fault in ("state_dropped_mid_sequence",
+                          "head_0_decay_doubled"):
+                with planted_ssd(fault):
+                    loss_f, _ = kern.loss(params, batch)
+                    layers = []
+                    with scan_gaps(layers):
+                        lf = kern.forward(params, batch)[0]
+                faults[fault] = ssm_gap(lf, loss_f, layers, logits_p, loss_p,
+                                        vocab)
+                out = ssm_gap(lf, loss_f, [], logits_p, loss_p, vocab)
+                print(f"ssm loss {dtype}: planted fault {fault}, logits and "
+                      f"loss only: {out:.3e}; largest layer scan gap "
+                      f"{max(layers):.3e}", flush=True)
+                del lf
+            if dtype == "bfloat16":
+                # where the bf16 gap comes from: each bf16 path against
+                # the float32 kernel path
+                to32 = [logits_gap(t, f32_logits, vocab)
+                        for t in (logits_k, logits_p)]
+                print(f"ssm loss bfloat16 against the float32 kernel path's "
+                      f"logits: kernel {to32[0]:.3e}, plain {to32[1]:.3e}",
+                      flush=True)
+                del f32_logits
+            else:
+                f32_logits = logits_k[..., :vocab].clone()
+                last_k = logits_k[:, -1, :vocab]
+                del logits_k, logits_p
+                _, last_p = kern.prefill(params, batch, max_len=SSM_S)
+                cross = float((last_p[:, :vocab].float() - last_k.float())
+                              .abs().max() / last_k.float().abs().max())
+                print(f"ssm prefill vs forward(use_kernel=True) last "
+                      f"position, float32: gap={cross:.3e} (limit 1e-4)",
+                      flush=True)
+                check(cross <= 1e-4, f"ssm: prefill's last logits differ "
+                                     f"from the kernel forward's by {cross}")
+        print(f"ssm loss {cfg.name} {SSM_B}x{SSM_S} {dtype}: wall_s "
+              f"kernel={wall_k:.4f},{wall_k2:.4f} plain={wall_p:.4f},"
+              f"{wall_p2:.4f}; kernel vs plain gap={g:.3e} (limit {limit}) "
+              f"over logits, loss and every layer's scan; planted faults "
+              f"read "
+              + ", ".join(f"{k}={v:.3e}" for k, v in faults.items()),
+              flush=True)
+        check(g <= limit, f"ssm loss {dtype}: kernel vs plain gap {g} > "
+                          f"{limit}")
+        for k, v in faults.items():
+            check(v > limit, f"ssm loss {dtype}: planted fault {k} reads "
+                             f"{v}, within the limit {limit}")
+    return launches
+
+
+def ssm_serve_phase(dev, cfg, params):
+    """(f) ServeEngine on full-width mamba2-780m in bf16: prefill and
+    decode run no SSD kernel (as in the reference), so launches stay 0."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, batch_slots=SSM_SERVE_SLOTS,
+                      max_len=SSM_SERVE_PROMPT + SSM_SERVE_NEW, device=dev)
+    eng.warm(SSM_SERVE_PROMPT)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, SSM_SERVE_PROMPT).astype(np.int32),
+        max_new_tokens=SSM_SERVE_NEW) for i in range(SSM_SERVE_REQUESTS)]
+    before = dict(eng.stats)
+    ssd_scan.launches = 0
+    out, wall = timed(lambda: eng.run(reqs))
+    launches = ssd_scan.launches
+    stats = {k: eng.stats[k] - before[k] for k in eng.stats}
+    tokens = sum(len(t) for t in out.values())
+    print(f"serve {cfg.name}: {SSM_SERVE_REQUESTS} requests x prompt "
+          f"{SSM_SERVE_PROMPT} + {SSM_SERVE_NEW} new, {SSM_SERVE_SLOTS} "
+          f"slots: {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+          f"tokens/s, stats {stats}, ssd_scan launches={launches}",
+          flush=True)
+    waves = -(-SSM_SERVE_REQUESTS // SSM_SERVE_SLOTS)
+    check(stats == {"prefills": SSM_SERVE_REQUESTS,
+                    "decode_steps": waves * (SSM_SERVE_NEW - 1),
+                    "tokens_out": SSM_SERVE_REQUESTS * SSM_SERVE_NEW},
+          f"serve {cfg.name}: stats {stats}")
+    check(all(len(t) == SSM_SERVE_NEW and all(0 <= x < cfg.vocab_size
+                                              for x in t)
+              for t in out.values()),
+          f"serve {cfg.name}: a request's tokens are missing or outside the "
+          "vocab")
+    check(launches == 0, f"serve {cfg.name}: ssd_scan launched {launches} "
+                         "times; prefill and decode do not run it")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -624,7 +1082,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    sources = ["maxmin_fair", "flash_attention"]
+    sources = ["maxmin_fair", "flash_attention", "ssd_scan"]
     _build.build_libraries(sources)
     for name in sources:
         _build.load_library(name)
@@ -695,6 +1153,14 @@ def main() -> int:
     params = lm_params(cfg, dev)
     flash_launches = serve_phase(dev, cfg, params)
     prefill_phase(dev, cfg, params)
+    del params
+
+    # ---- Mamba-2: the SSD kernel, mamba2-780m scoring and serving
+    ssd_rec = ssd_phase(dev)
+    scfg = get_config(SSM_ARCH)
+    sparams = lm_params(scfg, dev)
+    ssd_launches = ssm_loss_phase(dev, scfg, sparams)
+    ssm_serve_phase(dev, scfg, sparams)
 
     kernels = [{
         "name": "masked_min_rows", "route": "cuda",
@@ -707,7 +1173,11 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
-        "launches": flash_launches, **flash_rec}]
+        "launches": flash_launches, **flash_rec}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:67",
+        "launches": ssd_launches, **ssd_rec}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

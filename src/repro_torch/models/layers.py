@@ -14,7 +14,7 @@ one device.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,13 +24,36 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 Params = Dict[str, Any]
 # a parameter's shape and how it is drawn: "dense" (normal / sqrt(fan-in),
 # the fan-in being the leading dim, as the reference's ``_dense_init``
-# gives for every shape used here), "embed" (normal * 0.02), "ones", "zeros"
+# gives for every shape used here), "embed" (normal * 0.02), "conv"
+# (normal * 0.1), "ones", "zeros", or a deterministic vector over the
+# last dim: "a_log" and "dt_bias" (Mamba-2, see ``mamba2``)
 Layout = Dict[str, Any]
 
 NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
 # helpers
+
+
+def a_log_init(nh: int) -> torch.Tensor:
+    """Mamba-2's ``A_log``: log(linspace(1, 16, nh)) as float32, computed
+    in float64 and rounded once.  XLA's own rewriting of ``jnp.linspace``
+    and its float32 log give values up to two ulps away on the CPU (at 9 of
+    48 heads)."""
+    return torch.log(torch.linspace(1.0, 16.0, nh,
+                                    dtype=torch.float64)).float()
+
+
+def dt_bias_init(nh: int) -> torch.Tensor:
+    """Mamba-2's ``dt_bias``: softplus^-1(0.01) = log(expm1(0.01)) in
+    float32, as the reference computes it."""
+    return torch.log(torch.expm1(torch.full((nh,), 1e-2,
+                                            dtype=torch.float32)))
+
+
+# deterministic leaves by init kind: a function of the last dim's size
+_VECTOR_INITS: Dict[str, Callable[[int], torch.Tensor]] = {
+    "a_log": a_log_init, "dt_bias": dt_bias_init}
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -54,9 +77,12 @@ def init_from_layout(layout: Layout, generator: torch.Generator,
             t = torch.ones(full, dtype=dtype, device=device)
         elif kind == "zeros":
             t = torch.zeros(full, dtype=dtype, device=device)
+        elif kind in _VECTOR_INITS:
+            t = _VECTOR_INITS[kind](shape[-1]).to(
+                device=device, dtype=dtype).expand(full).clone()
         else:
-            scale = 0.02 if kind == "embed" else 1.0 / math.sqrt(
-                max(shape[0], 1))
+            scale = {"embed": 0.02, "conv": 0.1}.get(
+                kind, 1.0 / math.sqrt(max(shape[0], 1)))
             t = (torch.randn(full, generator=generator, dtype=torch.float32,
                              device=generator.device) * scale).to(
                 device=device, dtype=dtype)

@@ -1,10 +1,12 @@
-"""Model assembly for the dense family.
+"""Model assembly for the dense and ssm families.
 
-Port of ``repro.models.lm.Model`` for ``family == "dense"``; the other
-families raise ``NotImplementedError`` naming the slice that ports them.
-Same methods as the reference, on nested dicts of tensors::
+Port of ``repro.models.lm.Model`` for ``family`` "dense" (qwen2-style) and
+"ssm" (Mamba-2); the other families raise ``NotImplementedError`` naming
+the slice that ports them.  Same methods as the reference, on nested
+dicts of tensors::
 
   init(generator) -> params                 forward(params, batch) -> (logits, aux)
+  loss(params, batch) -> (loss, metrics)
   init_cache(batch, max_len) -> cache       prefill(params, batch, max_len) -> (cache, logits)
   decode(params, cache, tokens) -> (cache, logits)
 
@@ -13,8 +15,9 @@ reference, so converting a reference tree is a copy; the layer stack is a
 Python loop over that axis (the reference's ``lax.scan``).  The
 reference's ``constrain`` (a sharding constraint) is the identity on one
 device and is left out; remat is a training concern and is not ported.
-``cache["len"]`` is a Python int, and ``decode`` writes the KV cache in
-place (the reference donates it to a jitted step).
+``cache["len"]`` is a Python int, and ``decode`` writes the KV cache, or
+the ssm cache's conv window and state, in place (the reference donates
+the cache to a jitted step).
 """
 from __future__ import annotations
 
@@ -26,20 +29,22 @@ from torch import nn
 from repro_torch._device import DeviceLike, resolve_device
 
 from . import layers as L
+from . import mamba2 as M
 
 Params = Dict[str, Any]
 
-# the slice of the port that brings each family the dense slice leaves out
-_UNPORTED = {"ssm": "slice 8b", "moe": "slice 8c", "hybrid": "slice 8c",
-             "encdec": "slice 8c", "vlm": "slice 8c"}
+# the slice of the port that brings each family not yet ported
+_UNPORTED = {"moe": "slice 8c", "hybrid": "slice 8c", "encdec": "slice 8c",
+             "vlm": "slice 8c"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is "
-            f"not ported yet ({_UNPORTED[cfg.family]}); only 'dense' is")
-    if cfg.family != "dense":
+            f"not ported yet ({_UNPORTED[cfg.family]}); 'dense' and 'ssm' "
+            "are")
+    if cfg.family not in ("dense", "ssm"):
         raise ValueError(cfg.family)
 
 
@@ -50,6 +55,11 @@ def _stacked(layout, n: int):
 
 
 def layer_layout(cfg) -> L.Layout:
+    """One layer's parameters: the reference's ``_init_layer`` (dense) or
+    ``_init_ssm_layer`` (ssm) tree."""
+    if cfg.family == "ssm":
+        return {"ln": L.layout_norm(cfg.d_model, cfg.norm),
+                "ssm": M.layout_ssm(cfg)}
     return {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
             "attn": L.layout_attention(cfg),
             "ln2": L.layout_norm(cfg.d_model, cfg.norm),
@@ -72,9 +82,12 @@ def _layer(stacked: Params, i: int) -> Params:
 
 
 class Model(nn.Module):
-    """A dense decoder-only LM on ``device`` (default ``"cuda"``, which
-    raises without a card).  ``use_kernel`` sends full-sequence attention
-    (``forward``, ``prefill``) through the flash-attention kernel."""
+    """A decoder-only LM on ``device`` (default ``"cuda"``, which raises
+    without a card).  ``use_kernel`` sends the dense family's
+    full-sequence attention (``forward``, ``loss``, ``prefill``) through
+    the flash-attention kernel, and the ssm family's full-sequence scan
+    (``forward``, ``loss``; not ``prefill``, which needs the final state,
+    as in the reference) through the SSD chunk-scan kernel."""
 
     def __init__(self, cfg, use_kernel: bool = False,
                  device: DeviceLike = "cuda"):
@@ -127,21 +140,55 @@ class Model(nn.Module):
         h = L.apply_norm(p_l["ln2"], x, cfg.norm)
         return x + L.apply_mlp(p_l["mlp"], h, cfg), kv
 
+    def _ssm_layer_fwd(self, p_l: Params, x: torch.Tensor):
+        h = L.apply_norm(p_l["ln"], x, self.cfg.norm)
+        return x + M.apply_ssm(p_l["ssm"], h, self.cfg,
+                               use_kernel=self.use_kernel)
+
     def forward(self, params: Params, batch):
         """Teacher-forcing forward.  Returns (logits, (aux, mask, labels));
         aux is 0 (it is the MoE balance loss)."""
         cfg = self.cfg
         x, positions, mask, labels = self._embed_inputs(params, batch)
         for p_l in self._layers(params):
-            x, _ = self._dense_layer_fwd(p_l, x, positions)
+            if cfg.family == "ssm":
+                x = self._ssm_layer_fwd(p_l, x)
+            else:
+                x, _ = self._dense_layer_fwd(p_l, x, positions)
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return logits, (aux, mask, labels)
 
+    @torch.no_grad()
+    def loss(self, params: Params, batch):
+        """Mean next-token cross-entropy over the positions that have a
+        label (every one but the last), in float32; returns (loss,
+        {"ce", "aux", "tokens"}).  Values only: it scores a batch and
+        builds no graph (the kernels have no backward; training is a
+        later slice)."""
+        logits, (aux, mask, labels) = self.forward(params, batch)
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None])[..., 0]
+        nll = (lse - ll) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = nll.sum() / denom
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "tokens": denom}
+
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int) -> Params:
+        """The dense family's K/V cache (L, B, max_len, G, hd) in the
+        compute dtype, or the ssm family's {"conv": (L, B, K-1, C),
+        "state": (L, B, H, P, N)} in float32 (``max_len`` unused)."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            one = M.init_ssm_cache(cfg, batch_size, self.device)
+            return {"len": 0, "ssm": {
+                k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
+                               dtype=v.dtype, device=self.device)
+                for k, v in one.items()}}
         shape = (cfg.num_layers, batch_size, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return {"len": 0,
@@ -154,11 +201,18 @@ class Model(nn.Module):
         cfg = self.cfg
         x, positions, _, _ = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
-        if s > max_len:
+        if s > max_len and cfg.family != "ssm":
             raise ValueError(f"prefill: prompt of {s} tokens > max_len "
                              f"{max_len}")
         cache = self.init_cache(b, max_len)
         for i, p_l in enumerate(self._layers(params)):
+            if cfg.family == "ssm":
+                h = L.apply_norm(p_l["ln"], x, cfg.norm)
+                y, st = M.apply_ssm_prefill(p_l["ssm"], h, cfg)
+                x = x + y
+                for k, v in st.items():
+                    cache["ssm"][k][i] = v
+                continue
             x, (k, v) = self._dense_layer_fwd(p_l, x, positions)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
@@ -173,12 +227,18 @@ class Model(nn.Module):
         cache is updated in place and returned."""
         cfg = self.cfg
         pos = cache["len"]
-        if pos >= cache["k"].shape[2]:
+        if cfg.family != "ssm" and pos >= cache["k"].shape[2]:
             raise ValueError(f"decode: the cache of {cache['k'].shape[2]} "
                              "positions is full")
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         x = L.apply_embed(params["embed"], tokens, cfg)
         for i, p_l in enumerate(self._layers(params)):
+            if cfg.family == "ssm":
+                h = L.apply_norm(p_l["ln"], x, cfg.norm)
+                y, _ = M.apply_ssm_decode(p_l["ssm"], h, cfg, {
+                    k: v[i] for k, v in cache["ssm"].items()})
+                x = x + y
+                continue
             h = L.apply_norm(p_l["ln1"], x, cfg.norm)
             a, _ = L.apply_attention_decode(p_l["attn"], h, cfg,
                                             cache["k"][i], cache["v"][i], pos)

@@ -1,4 +1,4 @@
-"""Batched serving engine: prefill + decode with a slotted KV cache.
+"""Batched serving engine: prefill + decode with a slotted cache.
 
 Port of ``repro.serve.engine``.  Static-slot batching: waves of up to
 ``batch_slots`` requests; each request is prefilled alone, the wave's
@@ -9,10 +9,14 @@ and the decode step updates the cache in place (the reference donates
 it).
 
 One difference from the reference: ``ServeEngine`` takes ``use_kernel``
-(default True) and builds its model with it, so prefill runs the
-flash-attention CUDA kernel on the card.  The reference engine builds
-with the default ``use_kernel=False``; the computation is the same
-either way (the kernel computes the plain attention it replaces).
+(default True) and builds its model with it, so a dense model's prefill
+runs the flash-attention CUDA kernel on the card.  The reference engine
+builds with the default ``use_kernel=False``; the computation is the same
+either way (the kernel computes the plain attention it replaces).  For
+the ssm family (Mamba-2) ``use_kernel`` changes nothing here: it reaches
+only ``forward`` and ``loss``, while prefill runs the chunked scan (it
+needs the final state) and decode the one-step recurrence, so serving
+launches no SSD kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,12 +40,19 @@ class Request:
 
 def _stack(caches: List[dict]) -> dict:
     """Concatenate per-request caches on the batch axis (axis 1 of every
-    cache tensor); ``len`` is shared by the wave."""
+    cache tensor, at any depth of nesting: the ssm cache is
+    {"conv", "state"} under "ssm"); ``len`` is shared by the wave."""
     if len(caches) == 1:
         return caches[0]
-    return {key: torch.cat([c[key] for c in caches], dim=1)
-            if torch.is_tensor(leaf) else leaf
-            for key, leaf in caches[0].items()}
+    out = {}
+    for key, leaf in caches[0].items():
+        if isinstance(leaf, dict):
+            out[key] = _stack([c[key] for c in caches])
+        elif torch.is_tensor(leaf):
+            out[key] = torch.cat([c[key] for c in caches], dim=1)
+        else:
+            out[key] = leaf
+    return out
 
 
 class ServeEngine:

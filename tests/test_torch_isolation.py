@@ -47,6 +47,10 @@ assert masked_min_rows.launches == 0, masked_min_rows.launches
 flash_attention(torch.ones(1, 4, 1, 2, 32), torch.ones(1, 4, 1, 32),
                 torch.ones(1, 4, 1, 32))
 assert flash_attention_fwd.launches == 0, flash_attention_fwd.launches
+from repro_torch.kernels.ssd_scan import ssd, ssd_scan
+ssd(torch.ones(1, 8, 2, 4), torch.ones(1, 8, 2), -torch.ones(2),
+    torch.ones(1, 8, 2, 4), torch.ones(1, 8, 2, 4), 4)
+assert ssd_scan.launches == 0, ssd_scan.launches
 print(len(names))
 """
 
@@ -88,6 +92,7 @@ def _entry_points():
     prm = plat.fastsim()
     model = get_workload("hpl").fastsim_model(plat)
     lm = reduced(get_config("qwen2-0.5b"))
+    ssm = reduced(get_config("mamba2-780m"))
     return {
         "simulate_hpl_fast": lambda: simulate_hpl_fast(cfg, prm),
         "sweep_hpl": lambda: sweep_hpl(cfg, [prm, prm]),
@@ -101,6 +106,10 @@ def _entry_points():
         "ServeEngine": lambda: ServeEngine(lm, {}),
         "lm_params_from_reference": lambda: lm_params_from_reference(
             _lm_tree(lm), lm),
+        "build_model_ssm": lambda: build_model(ssm),
+        "ServeEngine_ssm": lambda: ServeEngine(ssm, {}),
+        "lm_params_from_reference_ssm": lambda: lm_params_from_reference(
+            _lm_tree(ssm), ssm),
     }
 
 
@@ -114,14 +123,17 @@ def _lm_tree(cfg):
     return zeros(param_layout(cfg))
 
 
-@pytest.mark.parametrize("name", ["build_model", "ServeEngine",
-                                  "lm_params_from_reference"])
+@pytest.mark.parametrize("name", [
+    "build_model", "ServeEngine", "lm_params_from_reference",
+    "build_model_ssm", "ServeEngine_ssm", "lm_params_from_reference_ssm"])
 def test_lm_entry_points_run_on_the_cpu_when_asked(name):
-    lm = reduced(get_config("qwen2-0.5b"))
+    base = name.removesuffix("_ssm")
+    lm = reduced(get_config("mamba2-780m" if name.endswith("_ssm")
+                            else "qwen2-0.5b"))
     call = {"build_model": lambda: build_model(lm, device="cpu"),
             "ServeEngine": lambda: ServeEngine(lm, {}, device="cpu"),
             "lm_params_from_reference": lambda: lm_params_from_reference(
-                _lm_tree(lm), lm, device="cpu")}[name]
+                _lm_tree(lm), lm, device="cpu")}[base]
     assert call() is not None
 
 

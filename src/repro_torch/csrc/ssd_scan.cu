@@ -17,12 +17,15 @@
 // It returns no final state and has no backward, like the TPU kernel.
 //
 // Bound: operations.  At mamba2-780m's shape (B=4, S=2048, H=48, P=64,
-// N=128, Q=256) the four products take 2 (Q(Q+1)/2) (N+P) + 4 Q N P =
-// 2.1e7 FLOPs a chunk with causal skipping (3.4e7 over full Q x Q), 3.2e10
-// for the call, against ~0.3 GB of inputs and output: ~100 FLOPs a byte,
-// far above the float32 ridge of the CUDA cores (67 TFLOP/s over 3.35 TB/s
-// = 20).  float32 on the tensor cores would round to TF32 and miss the 2e-4
-// limit, so the products run on the CUDA cores.
+// N=128, Q=256) with causal skipping, M x, (C o e^cum) h^T and
+// x^T (B o decay) take Q(Q+1) P + 4 Q N P = 1.26e7 FLOPs a chunk, 1.94e10
+// for the call, all with a float32 operand: 0.289 ms at the CUDA cores'
+// float32 peak (67 TFLOP/s), against ~0.1 GB of bf16 inputs and output
+// (0.03 ms at 3.35 TB/s).  C B^T depends only on the group (one for the
+// 780m: 2.7e8 FLOPs; one per head would be 1.3e10); for bf16 inputs it is
+// exact on the bf16 tensor cores.  float32 on the tensor cores would round
+// to TF32 and miss the 2e-4 limit, so this kernel runs every product on the
+// CUDA cores, C B^T once per head.
 //
 // Design (a), fused: one block of 256 threads per (b, h), looping over the
 // chunks in order with the state in shared memory (N x P float32, transposed

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 from .layers import Layout, cast
 
@@ -88,65 +89,6 @@ def _heads_bc(t: torch.Tensor, nh: int, ng: int) -> torch.Tensor:
     b, s, g, n = t.shape
     return t[:, :, :, None, :].expand(b, s, g, nh // ng, n).reshape(
         b, s, nh, n)
-
-
-def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                Bh: torch.Tensor, Ch: torch.Tensor, chunk: int):
-    """Chunked SSD scan (the plain baseline, in the compute dtype).
-
-    xh: (B, S, H, P); dt: (B, S, H) float32 (post-softplus); A: (H,)
-    float32 (negative); Bh, Ch: (B, S, H, N).  Returns y: (B, S, H, P) and
-    the final state (B, H, P, N) float32.
-    """
-    b, s0, h, p = xh.shape
-    n = Bh.shape[-1]
-    # pad S to a chunk multiple with dt = 0 (identity state transition: the
-    # padded steps neither decay the state nor inject input)
-    s = -(-s0 // chunk) * chunk
-    if s != s0:
-        pad = (0, 0, 0, 0, 0, s - s0)
-        xh, Bh, Ch = F.pad(xh, pad), F.pad(Bh, pad), F.pad(Ch, pad)
-        dt = F.pad(dt, (0, 0, 0, s - s0))
-    nc = s // chunk
-    dtype = xh.dtype
-
-    def reshape_c(t):
-        return t.reshape(b, nc, chunk, *t.shape[2:])
-
-    xc, dtc = reshape_c(xh), reshape_c(dt)
-    Bc, Cc = reshape_c(Bh), reshape_c(Ch)
-    Adt = dtc * A                                          # (B,nc,Q,H) <= 0
-    iq = torch.arange(chunk, device=xh.device)
-    causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=xh.device)
-    ys = []
-    for c in range(nc):
-        xq, dtq, Aq, Bq, Cq = xc[:, c], dtc[:, c], Adt[:, c], Bc[:, c], \
-            Cc[:, c]
-        cum = torch.cumsum(Aq, dim=1)                      # (B,Q,H)
-        # intra-chunk (dual, attention-like form); the (Q,Q,H) tiles in the
-        # compute dtype, as in the reference
-        L = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
-        L = torch.where(causal, torch.exp(L), 0.0).to(dtype)
-        CB = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
-        M = CB * L * dtq[:, None, :, :].to(dtype)
-        y_intra = torch.einsum("bijh,bjhp->bihp", M, xq)
-        # inter-chunk: the carried state's contribution
-        y_inter = torch.einsum(
-            "bqhn,bhpn->bqhp",
-            (Cq.float() * torch.exp(cum)[..., None]).to(dtype),
-            state.to(dtype))
-        # the chunk's new state
-        last = cum[:, -1:, :]                              # (B,1,H)
-        decay = torch.exp(last - cum)                      # (B,Q,H)
-        Sc = torch.einsum("bqhn,bqhp->bhpn",
-                          (Bq.float() * (decay * dtq)[..., None]).to(dtype),
-                          xq)
-        state = (torch.exp(last[:, 0, :])[:, :, None, None] * state
-                 + Sc.float())
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(b, s, h, p)
-    return y[:, :s0], state
 
 
 def _ssm_fwd(p: Params, x: torch.Tensor, cfg, use_kernel: bool = False,

@@ -10,8 +10,9 @@ in bfloat16 (the cumulative decay exponent is summed in float32 over a
 chunk, and bfloat16 inputs carry 8 mantissa bits).  A ragged S, which the
 Pallas kernel asserts on, is held against ``ssd_ref_sequential``; the
 port's ``ssd_chunked`` against the reference's for y and the final
-state within 1e-4 of scale (float32: only the summation order differs).
-The CUDA kernel itself runs only on the card (``-m cuda``).
+state within 1e-4 of scale (float32: only the summation order differs);
+B and C given as one group's broadcast to the heads (head stride 0, as
+the model passes them) against the exact recurrence.  The CUDA kernel itself runs only on the card (``-m cuda``).
 """
 import types
 
@@ -118,6 +119,21 @@ def test_ragged_length_is_dt_zero_padding(s, chunk):
                                atol=1e-6)
 
 
+def _shared_group(inputs):
+    """B and C cut to head 0's and broadcast to every head as a view with
+    head stride 0, as the model's ``_heads_bc`` passes one group."""
+    x, dt, A, B, C = inputs
+    return (x, dt, A, *(t[:, :, :1].expand_as(t) for t in (B, C)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shared_group_view_matches_exact_recurrence(dtype):
+    inputs = _shared_group(_torch(_inputs(2, 96, 4, 16, 8, seed=11), dtype))
+    assert inputs[3].stride(2) == 0 and inputs[4].stride(2) == 0
+    want = ssd_ref_sequential(*(t.contiguous() for t in inputs))
+    _close(ssd(*inputs, 32), want.float().numpy(), dtype)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,chunk", [(128, 32), (100, 32)])
 def test_ssd_chunked_matches_reference(jref, s, chunk, dtype):
@@ -196,4 +212,16 @@ def test_cuda_kernel_matches_plain_version(shape, dtype):
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     _close(got.cpu(), ssd_scan_ref(*inputs, chunk).float().cpu().numpy(),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_takes_a_shared_group_view(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    inputs = _shared_group([t.cuda() for t in _torch(
+        _inputs(2, 300, 4, 64, 128, seed=12), dtype)])
+    got = ssd(*inputs, 256)
+    _close(got.cpu(), ssd_scan_ref(*inputs, 256).float().cpu().numpy(),
            dtype)

@@ -4,9 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from src/repro_torch/csrc/ (one nvcc per
-source, all at once) and holds each against its plain torch version, then
-drives each main path through the entry points a user calls, with the
-launch counts set to 0 just before it and read just after:
+source, all at once), prints what the compiler reports for each (``-Xptxas
+-v``: registers, shared memory, spills) and, where the toolkit has
+``cuobjdump``, how many HGMMA (wgmma) instructions the bf16 flash kernels
+hold and how many HMMA the bf16 instances of the SSD kernel's chunk_scan
+hold (each must be above 0), holds each kernel against its plain torch
+version, then drives each main path through the entry points a user
+calls, with the launch counts set to 0 just before it and read just
+after:
 
   * HPL prediction: the max-min fair allocation of Frontera's panel
     broadcast (``waterfill``, which runs ``masked_min_rows`` once per
@@ -23,7 +28,9 @@ launch counts set to 0 just before it and read just after:
     (the reference engine's build), in bfloat16 and in float32, and the
     greedy tokens must agree.  Then a 4 x 2048 prefill and 16 decode steps
     with and without the kernel, compared in float32 and bfloat16, and two
-    planted faults that the comparison must catch.
+    planted faults that the comparison must catch.  The bf16 kernel is
+    timed beside scaled_dot_product_attention at the prefill shape and at
+    the served shape.
   * Mamba-2 scoring and serving: the SSD chunk-scan kernel against its
     plain version at the kernel tests' shapes, mamba2-780m's 4 x 2048
     forward shape, a ragged S and an S below the chunk, in float32 and
@@ -31,7 +38,8 @@ launch counts set to 0 just before it and read just after:
     in float64 within a derived rounding bound, with two planted faults
     that must break both, timed at the model's shape on per-head B and C
     and on one group's B and C shared by all heads, as the model passes
-    them; ``Model.loss`` of mamba2-780m at full width (48 layers, d_model
+    them (with each of its three passes' device time from torch.profiler);
+    ``Model.loss`` of mamba2-780m at full width (48 layers, d_model
     1536, 48 heads of 64, N 128, vocab 50,280, seeded weights) on
     4 x 2048 tokens with the kernel (48 launches a forward) against the
     plain chunked scan: in float32 at the logits, the loss and every
@@ -89,9 +97,9 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 8, 128, 32, 4
 # (B, S, G, R, hd): tests/test_kernels.py's flash shapes, a ragged one, the
 # shape ServeEngine gives the kernel (one 128-token prompt at a time), and
 # qwen2-0.5b's 4 x 2048 prefill
+FLASH_SERVED = (1, SERVE_PROMPT, 2, 7, 64)
 FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
-                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64),
-                (1, SERVE_PROMPT, 2, 7, 64)]
+                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64), FLASH_SERVED]
 FLASH_PREFILL = (4, 2048, 2, 7, 64)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # unit roundoff of bfloat16 (8 significand bits)
@@ -409,6 +417,38 @@ def planted_tile_faults(q, k, v, exact):
                             f"{excess} x the bound, within it")
 
 
+def sdpa_inputs(q, k, v):
+    """q, k, v in scaled_dot_product_attention's (B, heads, S, hd) layout,
+    the G x R query heads in group order."""
+    b, s, g, r, hd = q.shape
+    return (q.reshape(b, s, g * r, hd).transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2))
+
+
+def time_flash(shape, dev):
+    """The bf16 kernel at ``shape`` causal, timed beside
+    scaled_dot_product_attention (the library yardstick) in turns: kernel,
+    library, library, kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    q, k, v = flash_inputs(shape, torch.bfloat16, dev, 98)
+    qs, ks, vs = sdpa_inputs(q, k, v)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel():
+        return flash_attention_fwd(q, k, v, causal=True)
+
+    def library():
+        return sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    ms = [cuda_ms(kernel)]
+    library_ms = [cuda_ms(library), cuda_ms(library)]
+    ms.append(cuda_ms(kernel))
+    bound_ms, bound_by = flash_bound_ms(shape, True, torch.bfloat16)
+    print(f"flash_attention {shape} causal torch.bfloat16 (the shape "
+          f"ServeEngine's prefill gives it): ms={ms[0]:.6f},{ms[1]:.6f} "
+          f"library_ms(sdpa)={library_ms[0]:.6f},{library_ms[1]:.6f} "
+          f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+
+
 def flash_phase(dev):
     """(a) the flash kernel against its plain version at the test shapes,
     then timed at qwen2-0.5b's prefill shape beside the plain version and
@@ -422,6 +462,7 @@ def flash_phase(dev):
             for dtype in (torch.float32, torch.bfloat16):
                 seed += 1
                 check_flash(shape, causal, dtype, dev, seed)
+    time_flash(FLASH_SERVED, dev)
     rec = {}
     for dtype in (torch.bfloat16, torch.float32):
         (q, k, v), err, exact = check_flash(FLASH_PREFILL, True, dtype, dev,
@@ -429,9 +470,7 @@ def flash_phase(dev):
         if dtype == torch.bfloat16:
             planted_tile_faults(q, k, v, exact)
         del exact
-        b, s, g, r, hd = FLASH_PREFILL
-        qs = q.reshape(b, s, g * r, hd).transpose(1, 2)
-        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        qs, ks, vs = sdpa_inputs(q, k, v)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True))
@@ -833,6 +872,28 @@ def faulty_scan(scan, fault):
     return run
 
 
+def ssd_pass_times(inputs, chunk):
+    """Each of the kernel's three passes' mean device time over 5 calls, by
+    kernel name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    ssd_scan(*inputs, chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ssd_scan(*inputs, chunk)
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            name = next((n for n in ("chunk_state", "state_passing",
+                                     "chunk_scan") if n in e.name), e.name)
+            times.setdefault(name, []).append(e.time_range.elapsed_us())
+    check(len(times) == 3, f"ssd_scan passes: the profiler saw {sorted(times)}")
+    return {k: statistics.mean(v) * 1e-3 for k, v in times.items()}
+
+
 def ssd_phase(dev):
     """(d) the SSD kernel against its plain version and its float64 function
     at every checked shape, two planted faults at the model's shape, and
@@ -885,6 +946,12 @@ def ssd_phase(dev):
                 rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": None}
+                passes = ssd_pass_times(inputs, chunk)
+                print(f"ssd_scan {SSD_MODEL} {dtype} B/C shared by all "
+                      "heads, each pass's mean device ms (torch.profiler, 5 "
+                      "calls): " + ", ".join(f"{k}={v:.6f}"
+                                             for k, v in passes.items()),
+                      flush=True)
     return rec
 
 
@@ -1099,6 +1166,53 @@ def ssm_serve_phase(dev, cfg, params):
                          "times; prefill and decode do not run it")
 
 
+def sass_counts(build):
+    """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
+    in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
+    instances of the SSD kernel's chunk_scan; each must be above 0.  Where
+    the toolkit has no cuobjdump, it says so and checks the PTX of the
+    flash source for wgmma instead."""
+    import re
+    import shutil
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = next((t for t in (os.path.join(home, "bin", "cuobjdump"),
+                             shutil.which("cuobjdump") or "")
+                 if t and os.path.isfile(t)), None)
+    if tool is None:
+        ptx = subprocess.run(
+            [build._nvcc(), "-gencode", "arch=compute_90a,code=compute_90a",
+             "-std=c++17", "-ptx", "-o", "-",
+             str(build.CSRC / "flash_attention.cu")],
+            capture_output=True, text=True, check=True).stdout
+        n = ptx.count("wgmma.mma_async")
+        print(f"cuobjdump not found in the toolkit: no SASS counts; the PTX "
+              f"of flash_attention.cu holds {n} wgmma.mma_async", flush=True)
+        check(n > 0, "flash_attention.cu: no wgmma in its PTX")
+        return
+    for lib, want in (("flash_attention", "flash_fwd_bf16"),
+                      ("ssd_scan", "chunk_scanI13__nv_bfloat16")):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if want in m.group(1) else None
+                if fn:
+                    counts[fn] = {"HMMA": 0, "HGMMA": 0}
+            elif fn:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        counts[fn][op] += 1
+        for fn, c in counts.items():
+            print(f"sass {lib} {fn}: HGMMA={c['HGMMA']} HMMA={c['HMMA']}",
+                  flush=True)
+        op = "HGMMA" if lib == "flash_attention" else "HMMA"
+        check(counts and all(c[op] > 0 for c in counts.values()),
+              f"{lib}: a bf16 kernel without {op} in its SASS: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1134,6 +1248,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in sources:
         print(_build.build_log(name).strip(), flush=True)
+    sass_counts(_build)
 
     from repro_torch.core.apps.hpl import HPLConfig
     from repro_torch.core.fastsim import FastSimParams, simulate_hpl_fast

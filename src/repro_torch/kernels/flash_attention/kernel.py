@@ -2,11 +2,15 @@
 
 Port of the TPU kernel ``flash_attention_fwd`` (``_flash_kernel``,
 src/repro/kernels/flash_attention/kernel.py).  The kernel is
-``csrc/flash_attention.cu``: one block per (batch, KV group, 64 flattened
-q*R rows), key and value tiles staged once in shared memory for all R
-heads of the group, tensor-core ``mma.sync`` in bf16 and CUDA-core FMAs
-in float32 (see the note in the source).  Unlike the TPU kernel it masks
-ragged Sq and Sk itself, so every prompt length runs.
+``csrc/flash_attention.cu`` (see the note in the source).  In bf16, one
+block per (batch, KV group, 192 flattened q*R rows; 128 at hd 128): a
+producer warp streams key and value tiles by TMA into a ring of
+shared-memory stages, each tile serving all R heads of the group, and
+consumer warpgroups run both products with ``wgmma``; the tensor maps
+are encoded on the host each call (``cuTensorMapEncodeTiled``, reached
+through ``cudaGetDriverEntryPoint``).  In float32, CUDA-core
+FMAs (the tensor cores would round to TF32).  Unlike the TPU kernel it
+masks ragged Sq and Sk itself, so every prompt length runs.
 
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel
 or raises; ``ops.flash_attention`` is the entry point that also takes CPU

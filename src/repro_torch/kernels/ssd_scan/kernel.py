@@ -2,13 +2,16 @@
 
 Port of the TPU kernel ``ssd_scan`` (``_ssd_kernel``,
 src/repro/kernels/ssd_scan/kernel.py).  The kernel is
-``csrc/ssd_scan.cu``: one block per (batch, head) walking the chunks in
-order with the float32 state in shared memory, each chunk streamed in
-64-row tiles, every product on the CUDA cores in float32 (see the note in
-the source).  Unlike the TPU kernel it masks a ragged S itself (the same
-result as padding with dt = 0), so every length runs.  Like it, it is
-forward only: there is no backward, and inputs that would need one are
-refused.
+``csrc/ssd_scan.cu``: the chunk-parallel split, three launches a call
+(each chunk's cumsum and own state; the states passed from chunk to
+chunk; each chunk's output), ``C B^T`` on the tensor cores for bf16
+inputs and every other product on the CUDA cores in float32 (see the note
+in the source).  The wrapper allocates the two float32 scratches the
+passes share: the cumsum (B, H, NC, Q) and the chunk states
+(B, H, NC, P, N), ~50 MB at mamba2-780m's 4 x 2048 shape.  Unlike the TPU
+kernel it masks a ragged S itself (the same result as padding with
+dt = 0), so every length runs.  Like it, it is forward only: there is no
+backward, and inputs that would need one are refused.
 
 ``ssd_scan`` takes CUDA tensors only and launches the kernel or raises;
 ``ops.ssd`` is the entry point that also takes CPU tensors (through the
@@ -32,7 +35,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 @functools.lru_cache(maxsize=None)
 def _c_fn():
     fn = load_library("ssd_scan").ssd_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -77,8 +80,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """xh: (B, S, H, P); dt: (B, S, H) float32; A: (H,) float32;
     Bh, Ch: (B, S, H, N), CUDA tensors, P <= 128, N <= 128 ->
     y: (B, S, H, P) in xh's dtype, in chunks of ``min(chunk, S)``
-    (``min(chunk, S) <= 256``).  ``ssd_scan.launches`` counts the kernel's
-    launches."""
+    (``min(chunk, S) <= 256``).  ``ssd_scan.launches`` counts the calls
+    (each launches the three passes)."""
     check_inputs(xh, dt, A, Bh, Ch)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: needs CUDA tensors, got {xh.device}; "
@@ -101,9 +104,14 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(xh)
     if y.numel() == 0:
         return y
+    nc = -(-s // chunk)
+    cum = torch.empty(b, h, nc, chunk, dtype=torch.float32, device=xh.device)
+    states = torch.empty(b, h, nc, p, n, dtype=torch.float32,
+                         device=xh.device)
     stream = torch.cuda.current_stream(xh.device).cuda_stream
     err = _c_fn()(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bh.data_ptr(),
-                  Ch.data_ptr(), y.data_ptr(), int(xh.dtype == torch.bfloat16),
+                  Ch.data_ptr(), y.data_ptr(), cum.data_ptr(),
+                  states.data_ptr(), int(xh.dtype == torch.bfloat16),
                   b, s, h, p, n, chunk, *bs, *cs, xh.device.index, stream)
     if err:
         raise RuntimeError(f"ssd_scan: CUDA launch failed with error {err} at "

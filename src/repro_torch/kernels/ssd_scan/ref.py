@@ -8,6 +8,10 @@ compute dtype.  ``ssd_scan_ref`` is the function of the TPU kernel's body
 with x, B and C in float32.  ``ssd_ref_sequential`` is the port of the
 reference's exact step-by-step recurrence
 (src/repro/kernels/ssd_scan/ref.py), the tests' ground truth.
+``ssd_split_ref`` mirrors the CUDA kernel's three passes (each chunk's
+cumsum and own state, the states passed from chunk to chunk, each chunk's
+output) in float32; the tests hold it to the others, and nothing on the
+main path calls it.
 """
 from __future__ import annotations
 
@@ -74,7 +78,6 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :s0], state
 
 
-
 def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bh: torch.Tensor, Ch: torch.Tensor,
                  chunk: int = 256) -> torch.Tensor:
@@ -107,3 +110,46 @@ def ssd_ref_sequential(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                 x[:, t]))
         ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, t], state))
     return torch.stack(ys, dim=1).to(xh.dtype)
+
+
+def ssd_split_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bh: torch.Tensor, Ch: torch.Tensor,
+                  chunk: int = 256) -> torch.Tensor:
+    """The CUDA kernel's decomposition in plain torch, float32 throughout:
+    (a) each chunk's cumsum of dt * A and its own state
+    x^T (B o e^{cum_last - cum} dt); (b) the states passed over the chunks
+    in order, h_in(0) = 0, h_in(c+1) = e^{cum_last(c)} h_in(c) + own(c);
+    (c) each chunk's y = (C B^T o L o dt_j) x + (C o e^cum) h_in^T.  Chunks
+    of ``min(chunk, S)`` positions, a ragged S padded with dt = 0; returns
+    y: (B, S, H, P) in xh's dtype."""
+    b, s0, h, p = xh.shape
+    q = min(chunk, s0)
+    nc = -(-s0 // q)
+    pad = nc * q - s0
+
+    def chunks(t):
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nc, q, *t.shape[2:])
+    x, dtc, Bc, Cc = chunks(xh), chunks(dt), chunks(Bh), chunks(Ch)
+    # (a) the cumsum (B, nc, Q, H) and each chunk's own state (B, nc, H, P, N)
+    cum = torch.cumsum(dtc * A, dim=2)
+    last = cum[:, :, -1]                                   # (B, nc, H)
+    dec = torch.exp(last[:, :, None] - cum) * dtc
+    own = torch.einsum("bcqhp,bcqhn->bchpn", x, Bc * dec[..., None])
+    # (b) the state entering each chunk
+    state = torch.zeros_like(own[:, 0])
+    h_in = []
+    for c in range(nc):
+        h_in.append(state)
+        state = torch.exp(last[:, c])[..., None, None] * state + own[:, c]
+    h_in = torch.stack(h_in, dim=1)                        # (B, nc, H, P, N)
+    # (c) each chunk's output
+    causal = torch.ones(q, q, dtype=torch.bool, device=xh.device).tril()
+    L = torch.exp(cum.transpose(2, 3)[..., :, None]
+                  - cum.transpose(2, 3)[..., None, :])     # (B, nc, H, i, j)
+    M = (torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+         * torch.where(causal, L, 0.0) * dtc.transpose(2, 3)[..., None, :])
+    y = (torch.einsum("bchij,bcjhp->bcihp", M, x)
+         + torch.einsum("bcihn,bchpn->bcihp", Cc * torch.exp(cum)[..., None],
+                        h_in))
+    return y.reshape(b, nc * q, h, p)[:, :s0].to(xh.dtype)

@@ -114,3 +114,30 @@ def test_cuda_kernel_matches_plain_version(shape, causal, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (77, 200), (200, 77)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("r", [1, 7])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_bf16_kernel_ragged_lengths(hd, r, sq, sk, causal):
+    """The bf16 kernel (wgmma, TMA K/V ring) at every head dim, with R = 1
+    and R = 7 query heads a group, ragged Sq and Sk (none a multiple of the
+    128-key tile, Sq != Sk either way): against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(hd + r + sq + sk)
+    q = torch.from_numpy(rng.standard_normal((2, sq, 2, r, hd), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, sk, 2, hd), np.float32))
+            for _ in range(2))
+    q, k, v = (t.cuda().to(torch.bfloat16) for t in (q, k, v))
+    before = flash_attention_fwd.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])

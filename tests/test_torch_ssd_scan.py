@@ -12,7 +12,12 @@ Pallas kernel asserts on, is held against ``ssd_ref_sequential``; the
 port's ``ssd_chunked`` against the reference's for y and the final
 state within 1e-4 of scale (float32: only the summation order differs);
 B and C given as one group's broadcast to the heads (head stride 0, as
-the model passes them) against the exact recurrence.  The CUDA kernel itself runs only on the card (``-m cuda``).
+the model passes them) against the exact recurrence.  ``ssd_split_ref``,
+the plain mirror of the CUDA kernel's three passes, is held against the
+Pallas kernel at the four shapes and against the exact recurrence there,
+at ragged lengths, below the chunk and on the head-stride-0 view, with
+the same limits.  The CUDA kernel itself runs only on the card
+(``-m cuda``).
 """
 import types
 
@@ -21,7 +26,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssd_scan import (ssd, ssd_ref_sequential, ssd_scan,
-                                          ssd_scan_ref)
+                                          ssd_scan_ref, ssd_split_ref)
 from repro_torch.models.mamba2 import ssd_chunked
 
 # (B, S, H, P, N, chunk): tests/test_kernels.py's shapes
@@ -29,6 +34,10 @@ SHAPES = [(1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),
           (1, 256, 2, 64, 16, 64), (1, 128, 2, 32, 128, 128)]
 TOL = {"float32": (2e-4, 2e-3), "bfloat16": (5e-2, 5e-1)}   # rtol, atol
 PORT_FNS = {"ssd": ssd, "ssd_scan_ref": ssd_scan_ref}
+# (B, S, H, P, N, chunk) beyond SHAPES for the split decomposition: ragged
+# last chunks, an S below the chunk (one chunk of S positions)
+SPLIT_EXTRA = [(2, 100, 3, 16, 8, 32), (2, 47, 3, 16, 8, 64),
+               (2, 300, 3, 16, 8, 256), (1, 40, 2, 16, 8, 64)]
 
 
 @pytest.fixture(scope="module")
@@ -135,6 +144,37 @@ def test_shared_group_view_matches_exact_recurrence(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_split_ref_matches_reference_kernel(jref, shape, dtype):
+    """The kernel's three-pass decomposition against the Pallas kernel."""
+    *dims, chunk = shape
+    arrays = _inputs(*dims, seed=sum(shape) + 2)
+    want = jref.kernel(*_jax(arrays, dtype, jref.jnp), chunk, interpret=True)
+    got = ssd_split_ref(*_torch(arrays, dtype), chunk)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "shared"])
+@pytest.mark.parametrize("shape", SHAPES + SPLIT_EXTRA,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_ref_matches_exact_recurrence(shape, shared, dtype):
+    """The decomposition against the exact recurrence at the four shapes,
+    ragged lengths and an S below the chunk, with B and C per head or one
+    group's broadcast to every head (head stride 0)."""
+    *dims, chunk = shape
+    inputs = _torch(_inputs(*dims, seed=sum(shape) + 3), dtype)
+    if shared:
+        inputs = _shared_group(inputs)
+        assert inputs[3].stride(2) == 0 or inputs[3].shape[2] == 1
+    want = ssd_ref_sequential(*(t.contiguous() for t in inputs))
+    got = ssd_split_ref(*inputs, chunk)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _close(got, want.float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,chunk", [(128, 32), (100, 32)])
 def test_ssd_chunked_matches_reference(jref, s, chunk, dtype):
     """The model's plain scan, y and final state, against the reference's
@@ -199,7 +239,10 @@ def test_kernel_wrapper_refuses_sizes_and_grad(monkeypatch, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SHAPES + [(2, 100, 4, 32, 16, 256),
-                                            (1, 300, 3, 64, 128, 256)],
+                                            (1, 300, 3, 64, 128, 256),
+                                            (1, 256, 4, 64, 128, 256),
+                                            (1, 300, 2, 128, 128, 256),
+                                            (2, 200, 2, 128, 128, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_kernel_matches_plain_version(shape, dtype):
     if not torch.cuda.is_available():
@@ -217,11 +260,21 @@ def test_cuda_kernel_matches_plain_version(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_takes_a_shared_group_view(dtype):
+@pytest.mark.parametrize("shape", [(2, 300, 4, 64, 128, 256),
+                                   (1, 256, 4, 64, 128, 256),
+                                   (1, 300, 2, 128, 128, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_takes_a_shared_group_view(shape, dtype):
+    """One chunk (NC = 1), a ragged last chunk, and P = N = 128, with one
+    group's B and C read through head stride 0; the kernel against the
+    plain version and against the split decomposition it mirrors."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    *dims, chunk = shape
     inputs = _shared_group([t.cuda() for t in _torch(
-        _inputs(2, 300, 4, 64, 128, seed=12), dtype)])
-    got = ssd(*inputs, 256)
-    _close(got.cpu(), ssd_scan_ref(*inputs, 256).float().cpu().numpy(),
+        _inputs(*dims, seed=12), dtype)])
+    got = ssd(*inputs, chunk)
+    _close(got.cpu(), ssd_scan_ref(*inputs, chunk).float().cpu().numpy(),
+           dtype)
+    _close(got.cpu(), ssd_split_ref(*inputs, chunk).float().cpu().numpy(),
            dtype)

@@ -18,8 +18,21 @@ after:
     iteration); ``get_workload("hpl").predict(get_platform(p))`` for
     bdw-local, tpu-v5e-pod, syn-mp-2pod-v5e and Frontera (N=9,282,848,
     88x91 grid, 24,175 panels) against the reference package's simulated
-    times; a 64-lane Frontera what-if grid and a mixed-geometry
-    forced-bucket sweep through ``sweep_hpl``, against the single runs.
+    times; the 64-row Frontera what-if grid through ``whatif_grid``
+    against the reference's rows and the single run, and a mixed-geometry
+    forced-bucket sweep through ``sweep_hpl`` against the single runs.
+    Then the kernel's rates for the whole broadcast (8,008 flows)
+    against the DES ``Network``'s progressive filling of the same flows
+    started together.
+  * The DES and gradient calibration: ``HPLSim`` on Frontera's spec at
+    N=65,536, nb=384, 16x16 (1,381,183 events), untraced and traced,
+    equal to the reference bit for bit, with its Chrome export validated
+    and its host wall time and events per second printed;
+    ``predict_des`` on bdw-local, equal to the reference; and
+    ``fit_fastsim_to_des(get_platform("bdw-local"))`` with the fit on the
+    card: DES probe times bit-equal, fitted scales and final loss within
+    1e-6 of the reference's, with the wall time and CUDA launches of one
+    fit step.  No kernel of the port runs on this path.
   * LM serving: ``ServeEngine`` on qwen2-0.5b at full width (24 layers,
     d_model 896, 14 query heads in 2 KV groups, vocab 151,936) with seeded
     random weights, 8 requests of 128 prompt tokens and 32 new tokens in
@@ -84,6 +97,52 @@ REFERENCE_TIME_S = {
 # differences (about n_panels * eps at worst), so 1e-10 there.
 TOL = {"bdw-local": 1e-12, "tpu-v5e-pod": 1e-12, "syn-mp-2pod-v5e": 1e-12,
        "frontera": 1e-10}
+# The 64-row Frontera what-if grid: link_bw scales x gemm_eff values
+# (None: Frontera's own), rows in itertools.product order
+GRID_LINK_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 2.0, 3.0, 4.0)
+GRID_GEMM_EFF = (0.80, 0.83, 0.86, 0.89, None, 0.94, 0.96, 0.98)
+# whatif_grid(get_workload("hpl"), "frontera", axes, mode="abs") from the
+# reference package: each row's simulated seconds
+REFERENCE_GRID_TIME_S = [
+    27512.467452621582, 26576.509984786633, 25706.510829365383,
+    24895.815577058594, 24138.63693649391, 23661.068161711064,
+    23203.70272250879, 22765.29576974001, 27097.876674362888,
+    26161.919661596723, 25291.921268850037, 24481.226289988965,
+    23724.052200552105, 23246.493933436057, 22789.13331356019,
+    22350.73095195183, 26890.586280754997, 25954.629641811673,
+    25084.631938832055, 24273.936914803064, 23516.763203358445,
+    23039.210225460865, 22581.852099933323, 22143.45211786345,
+    26766.214149818483, 25830.25762983079, 24960.26002173654,
+    24149.564978973525, 23392.391189698064, 22914.841357305082,
+    22457.48470389512, 22019.08612605648, 26683.300062895687,
+    25747.343807149646, 24877.346612194087, 24066.65175408344,
+    23309.47786298947, 22831.930096082648, 22374.574393880826,
+    21936.176723225217, 26579.65745424214, 25643.70152879786,
+    24773.704850265993, 23963.010319835437, 23205.836567677023,
+    22728.291550660797, 22270.937198500327, 21832.540816282442,
+    26476.015033365304, 25540.05933238852, 24670.063088337225,
+    23859.368885586864, 23102.195272364843, 22624.653005238768,
+    22167.300003120174, 21728.904909340523, 26424.194419788666,
+    25488.238883962233, 24618.242881615424, 23807.548750891812,
+    23050.375121312296, 22572.833732529194, 22115.48140543094,
+    21677.08695587026]
+# The discrete-event HPL at a size users run: Frontera's spec on a 16 x 16
+# grid.  Simulated seconds and event count from the reference package
+# (pure Python, so the port must equal them bit for bit).
+DES_CFG = dict(N=65536, nb=384, P=16, Q=16, lookahead=0)
+REFERENCE_DES = {"time_s": 3.394701127703015, "events": 1381183}
+# get_workload("hpl").predict_des(get_platform("bdw-local")), reference
+REFERENCE_PREDICT_DES = {"time_s": 0.05864729600365412, "events": 10597}
+# fit_fastsim_to_des(get_platform("bdw-local")), reference: the DES probe
+# times (bit-equal), the fitted scales and the final loss (within 1e-6
+# relative: the fit's float64 gradients agree with JAX's to ~1e-9)
+REFERENCE_BRIDGE = {
+    "probes": [0.012735053669038208, 0.02011167951747036,
+               0.021918354342872204],
+    "calibration": {"bcast_bw_scale": 13.322869489029895,
+                    "swap_bw_scale": 14.250587362886163},
+    "loss": 0.0019838668967092524}
+BRIDGE_RTOL = 1e-6
 # Published HBM rate of one H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), FLOP/s: bf16 on
@@ -173,7 +232,9 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def frontera_incidence(dev):
     """Flow x link incidence of Frontera's 1-ring panel broadcast in every
     process row at once: rank (p, q) sits on node p + q*P (column-major)
-    and sends to (p, (q+1) % Q), routed over the port's fat tree."""
+    and sends to (p, (q+1) % Q), routed over the port's fat tree. Returns
+    the incidence, the link capacities and the (src, dst) pairs in row
+    order."""
     from repro_torch.kernels.maxmin_fair import flow_incidence
     from repro_torch.platforms import get_platform
     plat = get_platform("frontera")
@@ -181,7 +242,8 @@ def frontera_incidence(dev):
     pairs = [(p + q * P, p + ((q + 1) % Q) * P)
              for q in range(Q) for p in range(P)]
     adj, caps = flow_incidence(plat.topology(), pairs)
-    return (torch.from_numpy(adj).to(dev), torch.from_numpy(caps).to(dev))
+    return (torch.from_numpy(adj).to(dev), torch.from_numpy(caps).to(dev),
+            pairs)
 
 
 def first_share(adj, caps):
@@ -227,11 +289,11 @@ def kernel_phase(dev):
                          < 0.05).to(torch.int8)
         vals = torch.rand(L, generator=g, device=dev) * 100
         check_minrows(f"{F}x{L}", adj, vals)
-    adj, caps = frontera_incidence(dev)
+    adj, caps, pairs = frontera_incidence(dev)
     check(tuple(adj.shape) == (8008, 18200),
           f"Frontera incidence shape {tuple(adj.shape)} != (8008, 18200)")
-    return adj, caps, check_minrows("frontera", adj,
-                                    first_share(adj, caps))
+    return adj, caps, pairs, check_minrows("frontera", adj,
+                                           first_share(adj, caps))
 
 
 def predict_phase(dev, name):
@@ -255,34 +317,46 @@ def predict_phase(dev, name):
 
 
 def grid_phase(dev, frontera_t):
-    """8 link_bw x 8 gemm_eff what-if lanes over Frontera's run."""
-    import dataclasses
-
+    """8 link_bw x 8 gemm_eff what-if rows over Frontera's run, through
+    ``whatif_grid`` (one batch: the 64 rows and the unmodified baseline),
+    against the reference's rows and the single run."""
+    from repro_torch.core import whatif_grid
     from repro_torch.platforms import get_platform
     from repro_torch.workloads import get_workload
     plat = get_platform("frontera")
     wl = get_workload("hpl")
-    model = wl.fastsim_model(plat)
-    base = model.params
-    link = [base.link_bw * f for f in (0.5, 0.75, 1.0, 1.25, 1.5, 2.0, 3.0,
-                                       4.0)]
-    eff = [0.80, 0.83, 0.86, 0.89, base.gemm_eff, 0.94, 0.96, 0.98]
-    prms = [dataclasses.replace(base, link_bw=lb, gemm_eff=ge)
-            for lb in link for ge in eff]
+    base = wl.fastsim_model(plat).params
+    axes = {"link_bw": [base.link_bw * f for f in GRID_LINK_SCALES],
+            "gemm_eff": [base.gemm_eff if e is None else e
+                         for e in GRID_GEMM_EFF]}
     t0 = time.perf_counter()
-    out = [r["time_s"] for r in model.sweep(prms, device=dev)]
+    rows = whatif_grid(wl, "frontera", axes, mode="abs", device=dev)
     wall = time.perf_counter() - t0
-    ref_lane = out[2 * 8 + 4]            # link_bw x 1.0, gemm_eff as is
-    err = rel_err(ref_lane, frontera_t)
+    out = [r["time_s"] for r in rows]
+    check(len(out) == len(REFERENCE_GRID_TIME_S),
+          f"grid: {len(out)} rows != {len(REFERENCE_GRID_TIME_S)}")
+    ref_err = max(rel_err(t, r) for t, r in zip(out, REFERENCE_GRID_TIME_S))
+    ref_lane = rows[2 * 8 + 4]           # link_bw x 1.0, gemm_eff as is
+    err = rel_err(ref_lane["time_s"], frontera_t)
     n_panels = wl.config(plat).n_panels
-    print(f"grid frontera 64 lanes: wall_s={wall:.3f} "
-          f"lane_panels_per_s={64 * n_panels / wall:.1f} "
+    print(f"whatif_grid frontera {len(rows)} rows + baseline: "
+          f"wall_s={wall:.3f} "
+          f"lane_panels_per_s={(len(rows) + 1) * n_panels / wall:.1f} "
           f"min_time_s={min(out)!r} max_time_s={max(out)!r} "
-          f"unmodified_lane={ref_lane!r} rel_err_vs_single={err:.3e}",
+          f"max_rel_err_vs_reference_rows={ref_err:.3e} "
+          f"(tol {TOL['frontera']}) "
+          f"unmodified_row={ref_lane['time_s']!r} "
+          f"speedup={ref_lane['speedup']!r} rel_err_vs_single={err:.3e}",
           flush=True)
     check(all(t > 0 and t < float("inf") for t in out),
           "grid: non-finite lane time")
-    check(err <= 1e-12, f"grid: unmodified lane rel err {err} > 1e-12")
+    check(ref_err <= TOL["frontera"],
+          f"grid: rows differ from the reference's by {ref_err} > "
+          f"{TOL['frontera']}")
+    check(err <= 1e-12, f"grid: unmodified row rel err {err} > 1e-12")
+    check(ref_lane["speedup"] == 1.0,
+          f"grid: unmodified row speedup {ref_lane['speedup']!r} != 1.0")
+    return wall
 
 
 def forced_bucket_phase(dev, singles):
@@ -303,6 +377,165 @@ def forced_bucket_phase(dev, singles):
         check(err <= 1e-12, f"forced bucket {n}: rel err {err} > 1e-12")
     print(f"forced bucket: wall_s={wall:.3f} "
           f"panels_per_s={panels / wall:.1f}", flush=True)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (from /proc/cpuinfo) and core count: the
+    DES runs on the host, not the card."""
+    name = "model not named"
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((line.partition(":")[2].strip() for line in f
+                         if line.lower().startswith("model name")), name)
+    except OSError:
+        pass
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def des_phase():
+    """HPLSim on Frontera's spec at 16 x 16, untraced and traced, and
+    predict_des on bdw-local, each equal to the reference bit for bit."""
+    from repro_torch.core.apps.hpl import HPLConfig, HPLSim
+    from repro_torch.platforms import get_platform
+    from repro_torch.trace import to_chrome_json, validate_chrome_events
+    from repro_torch.workloads import get_workload
+    cfg = HPLConfig(**DES_CFG)
+    plat = get_platform("frontera")
+    t0 = time.perf_counter()
+    res = HPLSim(cfg, plat).run()
+    wall = time.perf_counter() - t0
+    print(f"DES frontera 16x16 N={cfg.N} nb={cfg.nb}: time_s={res.time_s!r} "
+          f"events={res.events} reference={REFERENCE_DES['time_s']!r}/"
+          f"{REFERENCE_DES['events']} host_wall_s={wall:.3f} "
+          f"events_per_s={res.events / wall:.0f} host_cpu={host_cpu()!r}",
+          flush=True)
+    check(res.time_s == REFERENCE_DES["time_s"]
+          and res.events == REFERENCE_DES["events"],
+          f"DES frontera: ({res.time_s!r}, {res.events}) != reference")
+    t0 = time.perf_counter()
+    traced = HPLSim(cfg, plat, trace=True).run()
+    traced_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doc = to_chrome_json(traced.trace)
+    validate_chrome_events(doc)
+    chrome_wall = time.perf_counter() - t0
+    summ = traced.trace.summary()
+    print(f"DES frontera traced: time_s={traced.time_s!r} "
+          f"events={traced.events} host_wall_s={traced_wall:.3f} "
+          f"spans={len(traced.trace.spans)} "
+          f"chrome_events={len(doc['traceEvents'])} "
+          f"chrome_validate_wall_s={chrome_wall:.3f} "
+          f"critical_path_coverage={summ['critical_path_coverage']:.4f}",
+          flush=True)
+    check(traced.time_s == res.time_s and traced.events == res.events,
+          "DES frontera: the traced run differs from the untraced one")
+    out = get_workload("hpl").predict_des(get_platform("bdw-local"))
+    print(f"predict_des bdw-local: time_s={out['time_s']!r} "
+          f"events={out['events']}", flush=True)
+    check(out["time_s"] == REFERENCE_PREDICT_DES["time_s"]
+          and out["events"] == REFERENCE_PREDICT_DES["events"],
+          f"predict_des bdw-local: ({out['time_s']!r}, {out['events']}) != "
+          "reference")
+    return {"wall_s": wall, "events_per_s": res.events / wall}
+
+
+def fit_step_profile(runs, init, fields, dev):
+    """CUDA kernels launched per fit step and the device busy share,
+    from torch.profiler: a 2-step fit less a 1-step one (each also
+    evaluates the final loss once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.calibrate import fit_fastsim_params
+    counts, busy, walls = [], [], []
+    for steps in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fit_fastsim_params(runs, init, fields=fields, steps=steps,
+                               device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        counts.append(len(kernels))
+        busy.append(sum(e.time_range.elapsed_us() for e in kernels) * 1e-6)
+    if not counts[1]:
+        print("profiler recorded no device kernels: device time not "
+              "measured", flush=True)
+        return None, None
+    step_wall = walls[1] - walls[0]
+    return counts[1] - counts[0], ((busy[1] - busy[0]) / step_wall
+                                   if step_wall > 0 else None)
+
+
+def bridge_phase(dev):
+    """fit_fastsim_to_des on bdw-local with the fit on the card: probes
+    bit-equal to the reference, scales and final loss within 1e-6."""
+    import dataclasses
+
+    from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
+                                       get_platform)
+    plat = get_platform("bdw-local")
+    t0 = time.perf_counter()
+    des_probe_runs(plat)
+    probe_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = fit_fastsim_to_des(plat, device=dev)
+    wall = time.perf_counter() - t0
+    steps = fit.fit.steps
+    probes = [t for _, t in fit.probes]
+    cal_err = max(rel_err(fit.calibration[k], v)
+                  for k, v in REFERENCE_BRIDGE["calibration"].items())
+    loss_err = rel_err(fit.fit.loss, REFERENCE_BRIDGE["loss"])
+    step_s = (wall - probe_wall) / steps
+    init = dataclasses.replace(plat.fastsim(calibrated=False), lookahead=0.0)
+    launches, busy = fit_step_profile(fit.probes, init, fit.fields, dev)
+    print(f"bridge bdw-local: probes={probes!r} "
+          f"calibration={fit.calibration!r} loss0={fit.fit.loss0!r} "
+          f"loss={fit.fit.loss!r} max_rel_err_scales={cal_err:.3e} "
+          f"rel_err_loss={loss_err:.3e} (tol {BRIDGE_RTOL}) "
+          f"wall_s={wall:.3f} probe_wall_s={probe_wall:.3f} steps={steps} "
+          f"fit_s_per_step={step_s:.4f} launches_per_step={launches} "
+          f"device_busy_share={busy}", flush=True)
+    check(probes == REFERENCE_BRIDGE["probes"],
+          f"bridge: probe times {probes!r} != reference")
+    check(cal_err <= BRIDGE_RTOL, f"bridge: scales rel err {cal_err} > "
+          f"{BRIDGE_RTOL}")
+    check(loss_err <= BRIDGE_RTOL, f"bridge: loss rel err {loss_err} > "
+          f"{BRIDGE_RTOL}")
+    return {"s_per_step": step_s, "launches_per_step": launches,
+            "busy": busy}
+
+
+def network_phase(rates_k, pairs):
+    """The kernel's max-min rates (waterfill on the card, from the main
+    path, one per pair of ``frontera_incidence``) against the DES
+    Network's progressive filling for every flow of Frontera's 1-ring
+    broadcast started together, rtol 1e-4 (the reference kernel test's
+    bound)."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.hardware.network import Network
+    from repro_torch.platforms import get_platform
+    topo = get_platform("frontera").topology()
+    eng = Engine()
+    net = Network(eng, topo)
+    t0 = time.perf_counter()
+    for src, dst in pairs:
+        net.send(src, dst, 1e12)
+    # every flow starts within its route latency (< 1e-3 s); none of them
+    # (1e12 bytes at <= 12.5 GB/s) finishes before 1e-3 s
+    eng.run(until=1e-3)
+    wall = time.perf_counter() - t0
+    by_route = {tuple(map(id, f.links)): f.rate for f in net.flows}
+    des = torch.tensor([by_route[tuple(map(id, topo.route(s, d)))]
+                        for s, d in pairs], dtype=torch.float64)
+    kern = rates_k.double().cpu()
+    err = float(((kern - des).abs() / des).max())
+    print(f"waterfill vs DES Network, frontera 1-ring broadcast: "
+          f"flows={len(pairs)} of {len(pairs)} active={len(net.flows)} "
+          f"des_alloc_wall_s={wall:.3f} max_rel_err={err:.3e} (rtol 1e-4) "
+          f"rates={sorted(set(des.tolist()))}", flush=True)
+    check(len(net.flows) == len(pairs), "Network: not every flow started")
+    check(err <= 1e-4, f"waterfill vs Network: rel err {err} > 1e-4")
 
 
 def flash_bound_ms(shape, causal, dtype):
@@ -1253,10 +1486,13 @@ def main() -> int:
     from repro_torch.core.apps.hpl import HPLConfig
     from repro_torch.core.fastsim import FastSimParams, simulate_hpl_fast
     from repro_torch.core.hardware.node import local_node
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.maxmin_fair import (masked_min_rows, waterfill,
                                                  waterfill_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
 
-    adj, caps, frontera_rec = kernel_phase(dev)
+    adj, caps, pairs, frontera_rec = kernel_phase(dev)
 
     # ---- the main path: launch counts start at 0 here
     masked_min_rows.launches = 0
@@ -1304,6 +1540,20 @@ def main() -> int:
     print(f"waterfill: kernel vs plain max_abs_err={wf_err} (rtol 1e-4 ok), "
           f"conservation ok, min_rate={float(rates_k.min())!r} "
           f"max_rate={float(rates_k.max())!r}", flush=True)
+    network_phase(rates_k, pairs)
+
+    # ---- the DES and gradient calibration: the discrete-event HPL, the
+    # DES -> fastsim bridge with its fit on the card (no kernel of the
+    # port's runs on this path; the counts must stay 0)
+    for kernel in counted:
+        kernel.launches = 0
+    des_phase()
+    bridge_phase(dev)
+    torch.cuda.synchronize()
+    print("DES/calibration path launches: " + " ".join(
+        f"{k.__name__}={k.launches}" for k in counted), flush=True)
+    check(all(k.launches == 0 for k in counted),
+          "a kernel of the port was launched on the DES/calibration path")
 
     # ---- LM serving: qwen2-0.5b at full width, flash attention in prefill
     from repro_torch.configs import get_config

@@ -1,9 +1,21 @@
-"""The simulator core: the vectorized HPL recurrence (``fastsim``) and the
-hardware and application models it is built from.  The discrete-event
-engine, SimBLAS/SimMPI and calibration wait for later slices of the
-port."""
+"""The simulator core: the discrete-event engine with its library models
+(SimBLAS, SimMPI) and the TPU/XLA adaptation (SimXLA), the vectorized
+HPL recurrence (``fastsim``) with gradient calibration, and the §V
+what-if grid.  The dry-run-record predictions (``predict_cell``,
+``predict_cell_des``, ``whatif``, ``load_record``) wait for slice 8c of
+the port (ROADMAP §1)."""
+from .engine import Engine, Event, Process
+from .simblas import SimBLAS
+from .simmpi import SimMPI
+from .calibrate import (calibrate, measure_dgemm, fit_linear,
+                        fit_fastsim_params)
 from .fastsim import (FastSimParams, bucket_key, simulate_hpl_fast,
                       simulate_time_traced, sweep_hpl, trace_count)
+from .simxla import SimXLA, ICIParams, ICI, collective_time
+from .predict import whatif_grid
 
-__all__ = ["FastSimParams", "bucket_key", "simulate_hpl_fast", "sweep_hpl",
-           "simulate_time_traced", "trace_count"]
+__all__ = ["Engine", "Event", "Process", "SimBLAS", "SimMPI", "calibrate",
+           "measure_dgemm", "fit_linear", "fit_fastsim_params",
+           "FastSimParams", "bucket_key", "simulate_hpl_fast", "sweep_hpl",
+           "simulate_time_traced", "trace_count", "SimXLA", "ICIParams",
+           "ICI", "collective_time", "whatif_grid"]

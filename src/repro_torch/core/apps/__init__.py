@@ -1,5 +1,6 @@
-"""Application models: HPL's run geometry (the DES apps wait for the DES
-slice)."""
-from .hpl import HPLConfig, numroc
+"""Application models on the discrete-event simulator: HPL (``hpl``:
+``HPLConfig``, ``HPLSim``) and one transformer training step
+(``transformer``: ``TransformerStepSim``)."""
+from .hpl import HPLConfig, HPLResult, HPLSim, numroc
 
-__all__ = ["HPLConfig", "numroc"]
+__all__ = ["HPLConfig", "HPLResult", "HPLSim", "numroc"]

@@ -1,9 +1,9 @@
 from .node import NodeModel, frontera_node, pupmaya_node
-from .network import Link
+from .network import Flow, Link, Network
 from . import topology
 
 __all__ = ["NodeModel", "TPU_V5E", "frontera_node", "pupmaya_node",
-           "Link", "topology"]
+           "Link", "Network", "Flow", "topology"]
 
 
 def __getattr__(name):

@@ -3,12 +3,13 @@ backends.
 
     from repro_torch.platforms import get_platform
     plat = get_platform("frontera")
-    node, topo, rpn, overhead = plat.des()     # hardware stack
+    node, topo, rpn, overhead = plat.des()     # discrete-event stack
     prm = plat.fastsim()                       # vectorized fastsim params
     cfg = plat.hpl_config()                    # the machine's Rmax run
 
-The DES-to-fastsim bridge (``fit_fastsim_to_des``) waits for the DES
-slice.
+Bridge utilities (``fit_fastsim_to_des``) are exposed lazily: the bridge
+imports ``core.apps.hpl`` and ``core.calibrate``, and ``core`` imports
+this package.
 """
 from .spec import (FabricSpec, MPIStackSpec, NodeSpec, Platform,
                    ScaleSpec)
@@ -21,4 +22,17 @@ __all__ = ["FabricSpec", "MPIStackSpec", "NodeSpec", "Platform",
            "ScaleSpec", "get_platform", "list_platforms", "register",
            "bulk_register", "unregister", "add_invalidation_hook",
            "DESStack", "build_des", "build_fastsim", "build_ici",
-           "build_node", "build_topology"]
+           "build_node", "build_topology", "fit_fastsim_to_des",
+           "des_probe_runs", "BridgeFit"]
+
+_BRIDGE_NAMES = ("fit_fastsim_to_des", "des_probe_runs", "BridgeFit",
+                 "DEFAULT_PROBES", "DEFAULT_FIT_FIELDS")
+
+
+def __getattr__(name):
+    # bridge imports apps.hpl + calibrate; resolve lazily to keep this
+    # package importable from inside core's own import chain
+    if name in _BRIDGE_NAMES:
+        from . import bridge
+        return getattr(bridge, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -98,11 +98,13 @@ def derived_net_latency(platform: Platform) -> float:
 
 
 def build_ici(platform: Platform, **overrides):
-    """ICI parameters for the analytic TPU-network backend: its model
-    (``core/simxla.py``) comes with the DES stack, ROADMAP §1 slice 4."""
-    raise NotImplementedError(
-        "build_ici: the ICI backend (core/simxla.py) is not ported yet; "
-        "it comes with the DES stack (ROADMAP §1, slice 4)")
+    """ICI parameters (the TPU-world analytic network section) derived
+    from the same spec that builds the DES topology — the third backend
+    adapter next to ``build_des``/``build_fastsim``.  Keyword overrides
+    win over the spec-derived values."""
+    # simxla lives in core, which imports this package: resolve lazily
+    from repro_torch.core.simxla import ici_from_platform
+    return ici_from_platform(platform, **overrides)
 
 
 def build_fastsim(platform: Platform, *, calibrated: bool = True):

@@ -17,8 +17,7 @@ multiple simulation backends.  This module is that description: a
     machine's published HPL run geometry and TOP500 numbers),
 
 plus an optional ``calibration`` table of DES-fitted fastsim overrides
-(fitted by ``repro``'s platforms/bridge.py, which is not ported yet).
-Specs are frozen, hashable, and round-trip
+(see platforms/bridge.py).  Specs are frozen, hashable, and round-trip
 through ``to_dict``/``from_dict`` (JSON-safe), so a registry machine can
 be shipped, diffed, and versioned as data.
 
@@ -183,9 +182,9 @@ class Platform:
         return build_node(self.node)
 
     def ici(self, **overrides):
-        """ICI parameters derived from the fabric/MPI sections — the
-        analytic-network backend adapter (not ported yet: raises
-        ``NotImplementedError``)."""
+        """ICI parameters (``repro_torch.core.simxla.ICIParams``) derived
+        from the fabric/MPI sections — the analytic-network backend
+        adapter."""
         from .build import build_ici
         return build_ici(self, **overrides)
 

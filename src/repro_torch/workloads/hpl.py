@@ -11,7 +11,7 @@ import dataclasses
 from typing import List, Sequence
 
 from repro_torch._device import DeviceLike
-from repro_torch.core.apps.hpl import HPLConfig
+from repro_torch.core.apps.hpl import HPLConfig, HPLSim
 
 from .base import FastModel, Workload, register_workload
 
@@ -67,9 +67,13 @@ class HPLWorkload(Workload):
 
     def des_app(self, platform, *, trace: bool = False,
                 faults=None, regions=None):
-        raise NotImplementedError(
-            "HPLWorkload.des_app: the discrete-event HPL application is "
-            "not ported yet (ROADMAP §1, slice 4: DES stack)")
+        if regions is not None:
+            raise NotImplementedError(
+                "HPLWorkload.des_app: representative-region runs "
+                "(regions=) are not ported yet (ROADMAP §1, slice 6: "
+                "scale and TOP500)")
+        return HPLSim(self.config(platform), platform, trace=trace,
+                      faults=faults)
 
     def des_ranks(self, platform) -> int:
         return self.config(platform).n_ranks
@@ -84,6 +88,19 @@ class HPLWorkload(Workload):
 
     def predict_des(self, platform, *, trace: bool = False,
                     faults=None, regions=None) -> dict:
-        raise NotImplementedError(
-            "HPLWorkload.predict_des: the discrete-event HPL application "
-            "is not ported yet (ROADMAP §1, slice 4: DES stack)")
+        """The full DES (pure Python on the host; no device)."""
+        res = self.des_app(platform, trace=trace, faults=faults,
+                           regions=regions).run()
+        out = {"time_s": res.time_s, "gflops": res.gflops,
+               "tflops": res.gflops / 1e3, "events": res.events}
+        if res.failed:
+            out["failed"] = True
+            out["n_finished"] = res.n_finished
+        if res.region_approx:
+            out["region_approx"] = True
+            out["panels_simulated"] = res.region_panels
+        if trace and res.trace is not None:
+            out["breakdown"] = res.trace.summary()
+            if res.region_approx:
+                out["breakdown"]["region_approx"] = True
+        return out

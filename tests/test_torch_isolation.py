@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import fit_fastsim_params, whatif_grid
 from repro_torch.core.apps.hpl import HPLConfig
 from repro_torch.core.fastsim import (simulate_hpl_fast, simulate_time_traced,
                                       sweep_hpl)
@@ -20,7 +21,7 @@ from repro_torch.convert import (fastsim_params_from_numpy,
                                  lm_params_from_reference)
 from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine
-from repro_torch.platforms import get_platform
+from repro_torch.platforms import fit_fastsim_to_des, get_platform
 from repro_torch.workloads import get_workload
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -110,6 +111,11 @@ def _entry_points():
         "ServeEngine_ssm": lambda: ServeEngine(ssm, {}),
         "lm_params_from_reference_ssm": lambda: lm_params_from_reference(
             _lm_tree(ssm), ssm),
+        "fit_fastsim_params": lambda: fit_fastsim_params(
+            [(cfg, 0.05)], prm, fields=("gemm_eff",), steps=1),
+        "whatif_grid": lambda: whatif_grid(get_workload("hpl"), plat,
+                                           {"link_bw": [1.0, 2.0]}),
+        "fit_fastsim_to_des": lambda: fit_fastsim_to_des(plat, steps=1),
     }
 
 
@@ -145,12 +151,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, name):
 
 
 def test_unported_paths_name_their_slice():
+    """The DES paths run now (slice 4); representative regions
+    (``regions=``) still name slice 6 and fault scenarios on the fast
+    model slice 5."""
     plat = get_platform("bdw-local")
     wl = get_workload("hpl")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        wl.des_app(plat)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        wl.predict_des(plat)
+    app = wl.des_app(plat)
+    assert app.cfg == wl.config(plat) and app.run().events == 10597
+    out = wl.predict_des(plat)
+    assert (out["time_s"], out["events"]) == (0.05864729600365412, 10597)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        wl.des_app(plat, regions=2)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        wl.predict_des(plat, regions=2)
     with pytest.raises(NotImplementedError, match="slice 5"):
         wl.fastsim_model(plat, faults={"faults": []})
     assert wl.des_ranks(plat) == HPLConfig(4096, 128, 4, 4).n_ranks

@@ -32,7 +32,7 @@ import dataclasses, json, sys
 import jax, jax.experimental
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = jax.enable_x64
-from repro.platforms import get_platform, list_platforms
+from repro.platforms import build_ici, get_platform, list_platforms
 
 pairs = json.loads(sys.stdin.read())
 out = {"names": list_platforms(), "platforms": {}}
@@ -45,6 +45,7 @@ for name in list_platforms():
         "fastsim": dataclasses.asdict(plat.fastsim()),
         "fastsim_raw": dataclasses.asdict(plat.fastsim(calibrated=False)),
         "n_links": topo.n_links,
+        "ici": dataclasses.asdict(build_ici(plat)),
         "routes": [[[index[id(l)], l.name, l.capacity, l.latency]
                     for l in topo.route(s, d)] for s, d in pairs[name]],
     }
@@ -148,7 +149,11 @@ def test_bulk_register_namespaces_and_notifies():
     assert "t/other" not in list_platforms()
 
 
-def test_hpl_config_and_unported_backends():
+def test_hpl_config_and_unported_backends(ref):
+    """Frontera's run geometry and its backends; the ICI backend came
+    with the DES slice and now equals the reference's on every platform
+    (field for field: the same float expressions)."""
+    _, reference = ref
     plat = get_platform("frontera")
     cfg = plat.hpl_config()
     assert (cfg.N, cfg.nb, cfg.P, cfg.Q, cfg.n_panels) == \
@@ -156,8 +161,10 @@ def test_hpl_config_and_unported_backends():
     with pytest.raises(ValueError, match="no default N"):
         dataclasses.replace(plat, scale=dataclasses.replace(
             plat.scale, hpl_n=0)).hpl_config()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        build_ici(plat)
+    for name in list_platforms():
+        assert dataclasses.asdict(build_ici(get_platform(name))) == \
+            reference["platforms"][name]["ici"], name
+    assert build_ici(plat, link_bw=1.0).link_bw == 1.0
     node, topo, rpn, overhead = plat.des()
     assert (node.name, topo.n_links, rpn, overhead) == \
         ("clx-8280", 18200, 1, 5e-7)

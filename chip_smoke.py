@@ -33,6 +33,28 @@ after:
     card: DES probe times bit-equal, fitted scales and final loss within
     1e-6 of the reference's, with the wall time and CUDA launches of one
     fit step.  No kernel of the port runs on this path.
+  * The transformer step model, fault sweeps, representative regions,
+    per-scale contention and the TOP500 fleet, each against the reference
+    package's answers (the ``REFERENCE_*`` constants, which
+    tests/test_torch_chip_constants.py holds to the reference):
+    ``get_workload("transformer").predict`` on four torus and multipod
+    platforms and an 18-scenario step sweep run twice (the second builds
+    no program), within 1e-12, and d step / d link_bw through autograd
+    within 1e-9; ``sweep_faults`` on tpu-v5e-pod for HPL at the
+    registry's N=619,520 nb=512 16x16 run and for the transformer, one
+    scenario of each closed-form kind and a combined one, within 1e-12,
+    and fail-stop and node-scoped link faults raising; ``RegionHPLSim``
+    on the 16x16 Frontera DES above with 12 of its 171 panels simulated
+    (the prefix's events and panel marks bit-equal, the result within
+    1e-12, its error against the exact run printed);
+    ``fit_contention_at_scale`` at 16 ranks with its fit on the card
+    (within 1e-6); and ``predict_fleet(load_sample())`` at the library's
+    default tuning, one forced-bucket sweep of 51 machines (4,096 loop
+    steps), every machine's predicted and calibrated Rmax and the family
+    factors within 1e-12, the same bucket and splits, one bucket program
+    built and the held-out median error the reference's (<= 15%), with
+    the sweep's wall time and CUDA launches per loop step.  Each prints
+    its host wall time, and no kernel of the port runs on these paths.
   * LM serving: ``ServeEngine`` on qwen2-0.5b at full width (24 layers,
     d_model 896, 14 query heads in 2 KV groups, vocab 151,936) with seeded
     random weights, 8 requests of 128 prompt tokens and 32 new tokens in
@@ -143,6 +165,168 @@ REFERENCE_BRIDGE = {
                     "swap_bw_scale": 14.250587362886163},
     "loss": 0.0019838668967092524}
 BRIDGE_RTOL = 1e-6
+# ---- slices 5 and 6 (the transformer step model, fault sweeps,
+# representative regions, per-scale contention, the TOP500 fleet).  Every
+# REFERENCE_* value below is the reference package's answer (JAX, float64
+# on the CPU) for the inputs above it; tests/test_torch_chip_constants.py
+# recomputes each one with the reference and holds these copies to it.
+# get_workload("transformer").predict(get_platform(p))["step_s"] at the
+# workload's default spec, the 18-scenario sweep over tpu-v5e-pod's step
+# (link_bw x (1 + 0.1 i), n_layers 2 + i, flops_per_layer x (1 + 0.05 i))
+# and d step_s / d link_bw there.
+STEP_PLATFORMS = ("tpu-v5e-pod", "syn-torus-fugaku-4k", "syn-torus-bgq-8k",
+                  "syn-mp-2pod-v5e")
+STEP_GRID_LANES = 18
+# One fault scenario of each closed-form kind and one combined, swept by
+# sweep_faults on tpu-v5e-pod for HPL (the registry's N=619,520, nb=512,
+# 16 x 16 run) and for the transformer (lane 0 is the healthy run).
+FAULT_SPECS = [
+    {"name": "straggler",
+     "faults": [{"kind": "straggler", "rank": 5, "factor": 2.0}]},
+    {"name": "link_degrade", "seed": 7,
+     "faults": [{"kind": "link_degrade", "link_frac": 0.05, "factor": 0.5}]},
+    {"name": "link_flap",
+     "faults": [{"kind": "link_flap", "link_frac": 0.1, "factor": 0.5,
+                 "period": 0.001, "duty": 0.5, "cycles": 3}]},
+    {"name": "latency_jitter",
+     "faults": [{"kind": "latency_jitter", "sigma": 0.3}]},
+    {"name": "combined", "seed": 7,
+     "faults": [{"kind": "straggler", "rank": 3, "factor": 3.0},
+                {"kind": "link_degrade", "link_frac": 0.1, "factor": 0.25},
+                {"kind": "latency_jitter", "sigma": 0.2}]},
+]
+# RegionHPLSim on DES_CFG (Frontera's spec): the first REGION panels of
+# 171 on the DES, the rest priced by fastsim (time, events, panel marks).
+REGION = 12
+# fit_contention_at_scale(frontera, 16 ranks, RegionSpec(8, 2), one
+# region probe, 12 steps): the fitted overrides and the provenance note.
+CONTENTION_FIT = {"at_ranks": 16, "panels": 8, "warmup": 2,
+                  "probe": {"N": 3072, "nb": 128, "P": 4, "Q": 4,
+                            "lookahead": 0},
+                  "steps": 12}
+REFERENCE_STEP_S = {
+    "tpu-v5e-pod": 0.004003977542605753,
+    "syn-torus-fugaku-4k": 0.03162865609031491,
+    "syn-torus-bgq-8k": 0.2080447044705882,
+    "syn-mp-2pod-v5e": 0.00791175620927242,
+}
+REFERENCE_STEP_GRID_S = [
+    0.002302287437969543, 0.002923560799650515, 0.0034705619635329948,
+    0.003961164384162436, 0.004408134814785593, 0.004820835541116751,
+    0.005206288277441624, 0.005569862569978699, 0.005915734732453468,
+    0.006247201854649212, 0.006566901608392554, 0.006876969251828861,
+    0.007179151814349791, 0.007474892494148459, 0.007765393956385786,
+    0.008051666439796955, 0.008334564761773265, 0.008614817100092499]
+REFERENCE_STEP_GRAD = {"step_s": 0.004003977542605753,
+                       "d_link_bw": -7.281777777777778e-14}
+REFERENCE_FAULT_SWEEP = {
+    "hpl": {
+        "time_s": [
+            88.82483519304056, 89.66776909211858, 89.75154890016452,
+            89.39753525055386, 88.82483519304056, 95.665003508809],
+        "slowdown_vs_healthy": [
+            1.0, 1.0094898447854825, 1.0104330473015792, 1.006447521757498,
+            1.0, 1.0770073853883646]},
+    "transformer": {
+        "time_s": [
+            0.004003977542605753, 0.0041311550852115055, 0.004611803462605753,
+            0.00437960804927242, 0.004003977542605753, 0.007639007187817258],
+        "slowdown_vs_healthy": [
+            1.0, 1.0317628011776976, 1.1518055267623786, 1.0938143390340322,
+            1.0, 1.9078546536616838]},
+}
+REFERENCE_REGION = {
+    "time_s": 3.492313662762151, "events": 100803,
+    "marks": [
+        0.05267713864718719, 0.08755134061158291, 0.1228064075359786,
+        0.15661709286037412, 0.1930398777847695, 0.2271212446691648,
+        0.2619523146979091, 0.2970067008779572, 0.3323052323623529,
+        0.36708017280674904, 0.40075040456173155, 0.43046109697615065]}
+REFERENCE_CONTENTION = {
+    "overrides": {"bcast_bw_scale": 2.9829309453194837,
+                  "swap_bw_scale": 2.9829277449834914},
+    "note": "region-fit panels=8 warmup=2 probes=1 fields="
+            "bcast_bw_scale,swap_bw_scale"}
+# predict_fleet(load_sample()) at the library's default FleetTuning():
+# the bucket, the family factors, the medians and, per machine in the
+# report's order, [name, split, predicted TFLOP/s, calibrated TFLOP/s].
+REFERENCE_FLEET = {
+    "bucket": [4091, 32, 32], "compiles": 1,
+    "median_abs_err": 0.05632630580837526,
+    "heldout_median_abs_err": 0.07712678548482028,
+    "factors": {
+        "__global__": 1.020883645165437,
+        "aries": 1.0133394527587665,
+        "bluegene": 1.0305713659772109,
+        "custom": 1.067121619308929,
+        "ethernet": 0.7659216099159046,
+        "infiniband": 0.9999477064944579,
+        "omnipath": 1.086683243262083,
+        "slingshot": 0.881070980318537,
+        "tofu": 1.0342017257178084,
+    },
+    "machines": [
+        ["r001-fugaku", "train", 399557.44582924026, 413223.00000000006],
+        ["r002-summit", "train", 132984.87206420163, 132977.91781905733],
+        ["r003-sierra", "test", 88119.77291037035, 88115.16481853729],
+        ["r004-sunway-taihulight", "train",
+         80297.57063959278, 85687.27360749537],
+        ["r005-tianhe-2a", "test", 75677.913582269, 80757.53768783208],
+        ["r006-hpc5", "train", 36784.161744681405, 36782.23817191535],
+        ["r007-selene", "test", 22785.969377606874, 22784.777819390943],
+        ["r008-frontera", "train", 22758.567463590472, 22757.377338316684],
+        ["r009-marconi-100", "test", 20101.202363217977, 20100.15120088079],
+        ["r010-piz-daint", "train", 19935.38214130081, 20201.30922960265],
+        ["r011-trinity", "test", 21427.642702984656, 21713.475730552847],
+        ["r012-ai-bridging-cloud-infrastructure-abci", "train",
+         20993.37367094304, 20992.27585384063],
+        ["r013-supermuc-ng", "train", 17321.346241278596, 18822.816711138115],
+        ["r014-lassen", "test", 16308.18595123026, 16307.333139017837],
+        ["r015-pangea-iii", "train", 17860.934010851684, 17860.0],
+        ["r016-sequoia", "train", 16663.765913693893, 17173.2],
+        ["r017-cori", "train", 14418.044346889523, 14610.373168328655],
+        ["r018-nurion", "test", 12334.145718196021, 13403.309471916386],
+        ["r019-oakforest-pacs", "train",
+         12190.086460560258, 13246.762690606827],
+        ["r020-hpc4", "test", 13299.138106123079, 13298.44264757082],
+        ["r021-tera-1000-2", "train", 12261.373515885172, 13084.376761223002],
+        ["r022-stampede2", "test", 8015.338283094995, 8710.133801316406],
+        ["r023-k-computer", "test", 9590.015447972863, 9918.010525953976],
+        ["r024-taiwania-2", "train", 8587.303815419293, 8586.854755199629],
+        ["r025-mira", "test", 8331.882956846946, 8586.6],
+        ["r026-tsubame-3.0", "train", 8244.125680394416, 8958.75323223123],
+        ["r027-aimos", "test", 7869.558216314093, 7869.1466895278945],
+        ["r028-belenos", "train", 7882.845574812285, 7882.433353183531],
+        ["r029-marenostrum", "test", 6714.039622325841, 7296.034352179176],
+        ["r030-flow", "train", 6053.900694382428, 6260.954545454546],
+        ["r031-marconi-intel-xeon-phase-a3", "train",
+         6193.390716427888, 6730.253910517133],
+        ["r032-juwels-module-1", "test", 5465.676836055642, 5465.391016653723],
+        ["r033-theta", "test", 5728.072321276118, 5804.481671404578],
+        ["r034-cloud-hpc-cluster-a", "train",
+         6689.333815835788, 5123.5053254898485],
+        ["r035-hazel-hen", "train", 5565.953229833137, 5640.2],
+        ["r036-cobra", "test", 5840.458309074888, 6346.728177442481],
+        ["r037-shaheen-ii", "test", 5481.66011500576, 5554.782461149494],
+        ["r038-electra", "train", 5657.25698193954, 5656.961144140202],
+        ["r039-mahti", "test", 5534.59446277098, 5534.3050394247675],
+        ["r040-cheyenne", "train", 4020.6842339414243, 4020.4739782681536],
+        ["r041-eagle", "test", 4136.1168667315205, 4135.900574681227],
+        ["r042-vulcan", "train", 4165.941478423473, 4293.3],
+        ["r043-hosting-services-cluster", "test",
+         4374.602132122674, 3350.602307776948],
+        ["r044-niagara", "train", 2748.019907030217, 2747.876203435979],
+        ["r045-quartz", "train", 2422.048942338593, 2632.0],
+        ["r046-mistral", "test", 2522.708347428164, 2522.5764261652166],
+        ["r047-lomonosov-2", "train", 2893.035116356007, 2892.8838294081165],
+        ["r048-cloud-hpc-cluster-b", "train",
+         3760.555233681396, 2880.290518758936],
+        ["r049-web-services-cluster", "test",
+         2883.8187786034555, 2208.7791216136766],
+        ["r050-shasta-early-access-system", "train",
+         1793.2720919133853, 1580.0],
+        ["r051-astra", "test", 1666.5150955179356, 1666.427947601552],
+    ]}
 # Published HBM rate of one H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), FLOP/s: bf16 on
@@ -504,6 +688,264 @@ def bridge_phase(dev):
           f"{BRIDGE_RTOL}")
     return {"s_per_step": step_s, "launches_per_step": launches,
             "busy": busy}
+
+
+def transformer_phase(dev):
+    """The transformer step model on the card: the four torus/multipod
+    platforms' step times, the 18-scenario sweep twice (the second adds
+    no lane shape to ``trace_count``; the port builds no step program, so
+    this is the reference's compile-once bookkeeping, not a measured
+    rebuild), and d step / d link_bw through autograd."""
+    from repro_torch.platforms import get_platform
+    from repro_torch.workloads import (get_workload, step_time_traced,
+                                       trace_count)
+    t0 = time.perf_counter()
+    for name in STEP_PLATFORMS:
+        t = get_workload("transformer").predict(get_platform(name),
+                                                device=dev)["step_s"]
+        err = rel_err(t, REFERENCE_STEP_S[name])
+        print(f"transformer {name}: step_s={t!r} "
+              f"reference={REFERENCE_STEP_S[name]!r} rel_err={err:.3e} "
+              "(tol 1e-12)", flush=True)
+        check(err <= 1e-12, f"transformer {name}: rel err {err} > 1e-12")
+    model = get_workload("transformer").fastsim_model(
+        get_platform("tpu-v5e-pod"))
+    base = model.params
+    grid = [dataclasses.replace(
+        base, link_bw=base.link_bw * (1 + 0.1 * i), n_layers=float(2 + i),
+        flops_per_layer=base.flops_per_layer * (1 + 0.05 * i))
+        for i in range(STEP_GRID_LANES)]
+    c0 = trace_count()
+    first = model.sweep(grid, device=dev)
+    c1 = trace_count()
+    again = model.sweep(grid, device=dev)
+    rebuilt = trace_count() - c1
+    err = max(rel_err(r["step_s"], w)
+              for r, w in zip(again, REFERENCE_STEP_GRID_S))
+    check(len(again) == len(REFERENCE_STEP_GRID_S),
+          f"step sweep: {len(again)} rows")
+    check(rebuilt == 0, f"step sweep: the second call saw {rebuilt} new "
+          "lane shapes")
+    check(first == again, "step sweep: the two calls differ")
+    check(err <= 1e-12, f"step sweep: rel err {err} > 1e-12")
+    lb = torch.tensor(base.link_bw, dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    t = step_time_traced(dataclasses.replace(base, link_bw=lb), device=dev)
+    t.backward()
+    g = float(lb.grad)
+    gerr = rel_err(g, REFERENCE_STEP_GRAD["d_link_bw"])
+    verr = rel_err(float(t.detach()), REFERENCE_STEP_GRAD["step_s"])
+    wall = time.perf_counter() - t0
+    print(f"transformer sweep tpu-v5e-pod {len(grid)} lanes: new lane "
+          f"shapes {c1 - c0} then {rebuilt}; max_rel_err={err:.3e} (tol "
+          f"1e-12); d step_s/d link_bw={g!r} reference="
+          f"{REFERENCE_STEP_GRAD['d_link_bw']!r} rel_err={gerr:.3e} (tol "
+          f"1e-9); host_wall_s={wall:.3f}", flush=True)
+    check(gerr <= 1e-9, f"step gradient: rel err {gerr} > 1e-9")
+    check(verr <= 1e-12, f"step gradient value: rel err {verr} > 1e-12")
+
+
+def fault_phase(dev):
+    """sweep_faults on tpu-v5e-pod for HPL at the registry's geometry and
+    for the transformer, against the reference; fail-stop and
+    node-scoped link faults must raise, as the reference's do."""
+    from repro_torch.core.fastsim import bucket_key
+    from repro_torch.faults import Fault, FaultSpec, as_fault_spec
+    from repro_torch.faults import sweep_faults
+    from repro_torch.platforms import get_platform
+    from repro_torch.workloads import get_workload
+    specs = [as_fault_spec(d) for d in FAULT_SPECS]
+    plat = get_platform("tpu-v5e-pod")
+    cfg = get_workload("hpl").config(plat)
+    check((cfg.N, cfg.nb, cfg.P, cfg.Q) == (619520, 512, 16, 16),
+          f"fault sweep: tpu-v5e-pod geometry {cfg}")
+    for kind in ("hpl", "transformer"):
+        t0 = time.perf_counter()
+        out = sweep_faults(get_workload(kind), plat, specs, device=dev)
+        wall = time.perf_counter() - t0
+        want = REFERENCE_FAULT_SWEEP[kind]
+        errs = {key: max(rel_err(r[key], w) for r, w in zip(out, want[key]))
+                for key in want}
+        rows = " ".join(
+            f"{s}={r['time_s']!r}/{r['slowdown_vs_healthy']!r}"
+            for s, r in zip(["healthy"] + [d["name"] for d in FAULT_SPECS],
+                            out))
+        geometry = (f" N={cfg.N} nb={cfg.nb} {cfg.P}x{cfg.Q} "
+                    f"bucket={bucket_key(cfg)}" if kind == "hpl" else "")
+        print(f"fault sweep {kind} tpu-v5e-pod{geometry}: {rows} "
+              f"max_rel_err time_s={errs['time_s']:.3e} slowdown="
+              f"{errs['slowdown_vs_healthy']:.3e} (tol 1e-12) "
+              f"host_wall_s={wall:.3f}", flush=True)
+        check(len(out) == len(specs) + 1, f"fault sweep {kind}: {len(out)}")
+        check(max(errs.values()) <= 1e-12,
+              f"fault sweep {kind}: rel err {errs} > 1e-12")
+    for bad, why in ((FaultSpec.fail_stop(rank=0), "fail_stop"),
+                     (FaultSpec(faults=(Fault("link_degrade", node=3,
+                                              factor=0.5),)), "DES-only")):
+        for kind in ("hpl", "transformer"):
+            try:
+                sweep_faults(get_workload(kind), plat, [bad], device=dev)
+                raised = ""
+            except ValueError as exc:
+                raised = str(exc)
+            check(why in raised, f"fault sweep {kind}: {bad} did not raise "
+                  f"({raised!r})")
+    print("fault sweep: fail_stop and node-scoped link faults raise "
+          "ValueError on both workloads", flush=True)
+
+
+def region_phase(dev):
+    """RegionHPLSim on DES_CFG: the prefix's events and panel marks
+    bit-equal to the reference's, the region result within 1e-12 (the
+    tail is fastsim on the card), fewer events than the exact run."""
+    from repro_torch.core.apps.hpl import HPLConfig
+    from repro_torch.platforms import get_platform
+    from repro_torch.scale import RegionHPLSim
+    cfg = HPLConfig(**DES_CFG)
+    t0 = time.perf_counter()
+    sim = RegionHPLSim(cfg, get_platform("frontera"), region=REGION,
+                       device=dev)
+    res = sim.run()
+    wall = time.perf_counter() - t0
+    marks = [sim._marks[k] for k in sorted(sim._marks)]
+    err = rel_err(res.time_s, REFERENCE_REGION["time_s"])
+    vs_exact = (res.time_s - REFERENCE_DES["time_s"]) / REFERENCE_DES[
+        "time_s"]
+    print(f"region frontera 16x16 N={cfg.N} nb={cfg.nb}: {REGION} of "
+          f"{cfg.n_panels} panels on the DES, time_s={res.time_s!r} "
+          f"reference={REFERENCE_REGION['time_s']!r} rel_err={err:.3e} "
+          f"(tol 1e-12) events={res.events} (exact run "
+          f"{REFERENCE_DES['events']}) marks_equal="
+          f"{marks == REFERENCE_REGION['marks']} error_vs_exact_des="
+          f"{vs_exact:+.4%} (not gated) host_wall_s={wall:.3f}", flush=True)
+    check(res.region_approx and res.region_panels == REGION,
+          "region: the result is not a region run")
+    check(res.events == REFERENCE_REGION["events"]
+          and marks == REFERENCE_REGION["marks"],
+          f"region: prefix ({res.events} events, marks {marks!r}) differs "
+          "from the reference's")
+    check(res.events < REFERENCE_DES["events"],
+          "region: no fewer events than the exact run")
+    check(err <= 1e-12, f"region: rel err {err} > 1e-12")
+
+
+def contention_phase(dev):
+    """fit_contention_at_scale on Frontera at 16 ranks with one region
+    probe and its fit on the card: overrides within 1e-6, note equal."""
+    from repro_torch.core.apps.hpl import HPLConfig
+    from repro_torch.platforms import get_platform
+    from repro_torch.scale import RegionSpec, fit_contention_at_scale
+    fit = CONTENTION_FIT
+    plat = get_platform("frontera")
+    t0 = time.perf_counter()
+    sf = fit_contention_at_scale(
+        plat, fit["at_ranks"],
+        region=RegionSpec(panels=fit["panels"], warmup=fit["warmup"]),
+        probe_configs=[HPLConfig(bcast=plat.mpi.bcast, **fit["probe"])],
+        steps=fit["steps"], device=dev)
+    wall = time.perf_counter() - t0
+    want = REFERENCE_CONTENTION
+    err = max(rel_err(sf.overrides[k], v)
+              for k, v in want["overrides"].items())
+    note = dict(sf.platform.provenance)[f"contention@{fit['at_ranks']}"]
+    print(f"contention frontera at {fit['at_ranks']} ranks: "
+          f"overrides={sf.overrides!r} max_rel_err={err:.3e} (tol "
+          f"{BRIDGE_RTOL}) note={note!r} host_wall_s={wall:.3f}", flush=True)
+    check(set(sf.overrides) == set(want["overrides"]),
+          f"contention: fields {sorted(sf.overrides)}")
+    check(err <= BRIDGE_RTOL, f"contention: rel err {err} > {BRIDGE_RTOL}")
+    check(note == want["note"], f"contention: note {note!r} != reference")
+    check(sf.platform.contention_dict[fit["at_ranks"]] == sf.overrides,
+          "contention: the entry is not in the platform's table")
+
+
+def fleet_step_profile(rep, dev):
+    """CUDA kernels launched per panel-loop step of the fleet's bucket
+    and the device busy share, from torch.profiler: the fleet's 51
+    geometries cut to 32 and to 64 panels in buckets of that depth and
+    the fleet's P and Q, the difference over 32 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.fastsim import sweep_hpl
+    prms = [e.platform.fastsim() for e in rep.entries]
+    counts, busy, walls = [], [], []
+    for panels in (32, 64):
+        cfgs = [dataclasses.replace(e.cfg, N=min(e.cfg.N, panels * e.cfg.nb))
+                for e in rep.entries]
+        bucket = (panels, rep.bucket[1], rep.bucket[2])
+        sweep_hpl(cfgs, prms, bucket=bucket, device=dev)     # builds
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sweep_hpl(cfgs, prms, bucket=bucket, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        counts.append(len(kernels))
+        busy.append(sum(e.time_range.elapsed_us() for e in kernels) * 1e-6)
+    if not counts[1]:
+        print("profiler recorded no device kernels: device time not "
+              "measured", flush=True)
+        return None, None
+    return (counts[1] - counts[0]) / 32, busy[1] / walls[1]
+
+
+def fleet_phase(dev):
+    """predict_fleet(load_sample()) at the default FleetTuning(): one
+    forced-bucket sweep on the card; bucket, splits, every machine's
+    predicted and calibrated Rmax, the family factors and the held-out
+    median error against the reference's."""
+    from repro_torch.core.fastsim import _bucket, trace_count
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.top500 import FleetTuning, load_sample, predict_fleet
+    want = REFERENCE_FLEET
+    m = MetricsRegistry()
+    c0 = trace_count()
+    t0 = time.perf_counter()
+    rep = predict_fleet(load_sample(), metrics=m, device=dev)
+    wall = time.perf_counter() - t0
+    built = trace_count() - c0
+    hist = m.snapshot()["histograms"]
+    sweep_wall = hist['fleet.phase_wall_s{phase="sweep"}']["sum"]
+    steps = _bucket(rep.bucket[0])
+    names = [[e.platform.name, e.split] for e in rep.entries]
+    pred_err = max(rel_err(e.predicted_tflops, w[2])
+                   for e, w in zip(rep.entries, want["machines"]))
+    cal_err = max(rel_err(e.calibrated_tflops, w[3])
+                  for e, w in zip(rep.entries, want["machines"]))
+    factors = rep.calibration.factors
+    fac_err = max(rel_err(factors[k], v) for k, v in want["factors"].items())
+    held = rep.calibration.heldout_median_abs_err
+    held_err = rel_err(held, want["heldout_median_abs_err"])
+    med_err = rel_err(rep.median_abs_err(), want["median_abs_err"])
+    launches, busy = fleet_step_profile(rep, dev)
+    print(f"fleet top500 2020_06 at {FleetTuning()}: machines="
+          f"{len(rep.entries)} bucket={rep.bucket} loop_steps={steps} "
+          f"programs_built={built} compiles={rep.compiles} "
+          f"max_rel_err predicted={pred_err:.3e} calibrated={cal_err:.3e} "
+          f"factors={fac_err:.3e} heldout_median={held_err:.3e} "
+          f"median={med_err:.3e} (tol "
+          f"1e-12) heldout_median_abs_err={held!r} (<= 0.15) "
+          f"median_abs_err={rep.median_abs_err()!r} sweep_wall_s="
+          f"{sweep_wall:.3f} ms_per_loop_step={sweep_wall / steps * 1e3:.3f} "
+          f"host_wall_s={wall:.3f} launches_per_loop_step={launches} "
+          f"device_busy_share_64_panel_cut={busy}", flush=True)
+    for e, w in zip(rep.entries, want["machines"]):
+        print(f"fleet {e.platform.name}: split={e.split} predicted_tflops="
+              f"{e.predicted_tflops!r} calibrated_tflops="
+              f"{e.calibrated_tflops!r} published_tflops="
+              f"{e.published_tflops!r} rel_err_vs_reference="
+              f"{rel_err(e.calibrated_tflops, w[3]):.3e}", flush=True)
+    check(list(rep.bucket) == want["bucket"],
+          f"fleet: bucket {rep.bucket} != {want['bucket']}")
+    check(names == [w[:2] for w in want["machines"]],
+          "fleet: machines or splits differ from the reference's")
+    check(built == 1 and rep.compiles == 1,
+          f"fleet: {built} bucket programs built (want 1)")
+    check(set(factors) == set(want["factors"]), "fleet: family set differs")
+    worst = max(pred_err, cal_err, fac_err, held_err, med_err)
+    check(worst <= 1e-12, f"fleet: rel err {worst} > 1e-12")
+    check(held <= 0.15, f"fleet: held-out median error {held} > 0.15")
 
 
 def network_phase(rates_k, pairs):
@@ -1554,6 +1996,20 @@ def main() -> int:
         f"{k.__name__}={k.launches}" for k in counted), flush=True)
     check(all(k.launches == 0 for k in counted),
           "a kernel of the port was launched on the DES/calibration path")
+
+    # ---- slices 5 and 6: the transformer step model, fault sweeps, a
+    # representative region, per-scale contention and the TOP500 fleet
+    # (no kernel of the port's runs on these paths; the counts must stay 0)
+    for phase in (transformer_phase, fault_phase, region_phase,
+                  contention_phase, fleet_phase):
+        for kernel in counted:
+            kernel.launches = 0
+        phase(dev)
+        torch.cuda.synchronize()
+        print(f"{phase.__name__} launches: " + " ".join(
+            f"{k.__name__}={k.launches}" for k in counted), flush=True)
+        check(all(k.launches == 0 for k in counted),
+              f"a kernel of the port was launched in {phase.__name__}")
 
     # ---- LM serving: qwen2-0.5b at full width, flash attention in prefill
     from repro_torch.configs import get_config

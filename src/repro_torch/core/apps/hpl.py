@@ -92,7 +92,7 @@ class HPLResult:
     trace: Optional[object] = None   # TraceRecorder when run with trace=True
     failed: bool = False             # a fault stopped ranks from finishing
     n_finished: int = -1             # ranks that completed (-1: all)
-    # representative-region runs (slice 6 of the port): only ``region_panels``
+    # representative-region runs (repro_torch.scale): only ``region_panels``
     # panels were simulated exactly; the rest are extrapolated
     region_approx: bool = False
     region_panels: int = 0
@@ -323,7 +323,7 @@ class HPLSim:
         else:
             self.blas = [SimBLAS(share) for _ in range(cfg.n_ranks)]
         self.finish_times: Dict[int, float] = {}
-        # region-simulation hooks (slice 6 of the port): truncate the run
+        # region-simulation hooks (repro_torch/scale/): truncate the run
         # after max_panels panels and/or record per-panel boundary times
         self.max_panels = max_panels
         self.panel_marks = panel_marks

@@ -105,7 +105,7 @@ class TransformerStepSim:
         self.jitter = jitter
         self.seed = seed
         self.finish: Dict[int, float] = {}
-        # region-simulation hook (slice 6 of the port): record per-layer
+        # region-simulation hook (repro_torch/scale/): record per-layer
         # boundary times (max over ranks; no events scheduled)
         self.layer_marks = layer_marks
         if faults is not None:

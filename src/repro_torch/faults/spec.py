@@ -26,9 +26,9 @@ Fault kinds (the ``kind`` field):
   * ``latency_jitter`` — every MPI send pays overhead scaled by a
     deterministic per-message draw from ``1 ± sigma`` while active.
 
-Injection happens in ``repro_torch.faults.inject.FaultRuntime`` (DES);
-the batched closed-form mapping (``faults/fastsim.py``) waits for slice 5
-of the port (ROADMAP §1).  This module is pure data.
+Injection happens in ``repro_torch.faults.inject.FaultRuntime`` (DES) and
+``repro_torch.faults.fastsim`` (batched closed-form mapping); this module
+is pure data.
 """
 from __future__ import annotations
 

@@ -37,8 +37,8 @@ through every call; it defaults to ``NULL_METRICS`` so nothing is
 recorded unless a caller opts in.
 
 This is the port's own copy of ``repro.obs.metrics``: instrument names
-and snapshot format are the same.  The Prometheus exporter
-(``obs/export.py``) waits for the serving slice.
+and snapshot format are the same, and ``to_prometheus`` goes through the
+port's ``obs/export.py``.
 """
 from __future__ import annotations
 
@@ -279,6 +279,9 @@ class _NullMetrics:
     def to_json(self, **kw) -> str:
         return json.dumps(self.snapshot(), sort_keys=True, **kw)
 
+    def to_prometheus(self) -> str:
+        return ""
+
 
 NULL_METRICS = _NullMetrics()
 
@@ -392,6 +395,11 @@ class MetricsRegistry:
                     setattr(h, attr,
                             theirs if mine is None else pick(mine, theirs))
         return self
+
+    # --------------------------------------------------------- export
+    def to_prometheus(self) -> str:
+        from .export import to_prometheus
+        return to_prometheus(self)
 
     def __repr__(self) -> str:
         return (f"MetricsRegistry({len(self._counters)} counters, "

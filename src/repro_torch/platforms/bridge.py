@@ -48,26 +48,22 @@ class BridgeFit:
         return {f: float(getattr(self.fit.params, f)) for f in self.fields}
 
 
-def _no_regions(regions, where: str) -> None:
-    if regions is not None:
-        raise NotImplementedError(
-            f"{where}: representative-region runs (regions=) are not "
-            "ported yet (ROADMAP §1, slice 6: scale and TOP500)")
-
-
 def des_probe_runs(platform: Platform,
                    probe_configs: Optional[Sequence] = None, *,
-                   regions=None) -> List[Tuple[object, float]]:
+                   regions=None,
+                   device: DeviceLike = "cuda") -> List[Tuple[object, float]]:
     """Run the DES on small probe configs; returns (cfg, seconds) pairs.
 
     Probes use ``lookahead=0`` (the DES models the non-overlapped
     schedule) and are clipped to the platform's rank capacity.  The DES
-    is pure Python on the host.  ``regions`` (representative-region
-    probes) waits for slice 6 of the port and raises.
+    is pure Python on the host.  With ``regions`` set (an int or
+    ``repro_torch.scale.RegionSpec``) each probe is a representative-region
+    run — only the region's panels are simulated exactly, and the tail is
+    priced by fastsim on ``device`` (unused without ``regions``) — which
+    is what makes 10^4+-rank probes affordable.
     """
     from repro_torch.core.apps.hpl import HPLConfig, HPLSim
 
-    _no_regions(regions, "des_probe_runs")
     if probe_configs is None:
         cap = platform.scale.n_ranks
         probe_configs = [HPLConfig(N=n, nb=nb, P=p, Q=q, lookahead=0,
@@ -78,7 +74,12 @@ def des_probe_runs(platform: Platform,
                          "fits its rank capacity")
     runs = []
     for cfg in probe_configs:
-        res = HPLSim(cfg, platform).run()
+        if regions is None:
+            res = HPLSim(cfg, platform).run()
+        else:
+            from repro_torch.scale import RegionHPLSim
+            res = RegionHPLSim(cfg, platform, region=regions,
+                               device=device).run()
         runs.append((cfg, res.time_s))
     return runs
 
@@ -97,13 +98,17 @@ def fit_fastsim_to_des(platform: Platform,
     stays untouched (only ``fields`` move).  The DES probes run on the
     host; the fit (``fit_fastsim_params``) runs on ``device``, which is
     resolved first, so a missing card raises before any probe runs.
-    ``regions`` waits for slice 6 of the port and raises.
+    ``regions`` switches the probes to representative-region runs
+    (``repro_torch.scale``), unlocking probe grids at 10^4+ ranks;
+    per-scale fits should go through
+    ``repro_torch.scale.fit_contention_at_scale``, which stores the result
+    in the spec's ``contention`` table instead of the global calibration.
     """
     from repro_torch.core.calibrate import fit_fastsim_params
 
     dev = resolve_device(device)
-    _no_regions(regions, "fit_fastsim_to_des")
-    runs = des_probe_runs(platform, probe_configs)
+    runs = des_probe_runs(platform, probe_configs, regions=regions,
+                          device=dev)
     init = dataclasses.replace(platform.fastsim(calibrated=False),
                                lookahead=0.0)
     fit = fit_fastsim_params(runs, init, fields=tuple(fields),

@@ -4,16 +4,17 @@ framework can predict, over any ``Platform``.
 A ``Workload`` binds an application's scenario knobs (its
 ``WorkloadSpec``) to the simulation backends every app offers:
 
-  * ``des_app(platform)``      — the discrete-event application (waits
-    for the DES slice of the port);
+  * ``des_app(platform)``      — the discrete-event application (per-rank
+    virtual threads issuing flows on the host; contention is emergent);
   * ``fastsim_model(platform)``— a ``FastModel``: a parameter set plus
     batched sweep entry points, so scenario grids run as one batch.
 
 ``WorkloadSpec`` is frozen, hashable data (JSON round-trip) so a
 scenario can be shipped to the serving layer, diffed, and versioned
 exactly like a ``Platform``.  The registry maps workload kind names
-("hpl", ...) to classes; ``get_workload("hpl", N=4096)`` is the one call
-site every benchmark, example, and service goes through.
+("hpl", "transformer", ...) to classes; ``get_workload("hpl", N=4096)``
+is the one call site every benchmark, example, and service goes
+through.
 """
 from __future__ import annotations
 
@@ -152,11 +153,23 @@ class Workload(abc.ABC):
     @abc.abstractmethod
     def des_app(self, platform, *, trace: bool = False, faults=None,
                 regions=None):
-        """The discrete-event application, built from the platform spec."""
+        """The discrete-event application, built from the platform spec;
+        the returned object has ``.run()`` and (traced) ``.trace``.
+        ``faults`` is an optional ``repro_torch.faults.FaultSpec`` (or
+        dict / JSON form) injected into the run.  ``regions`` (an int
+        region length or a ``repro_torch.scale.RegionSpec``) switches to
+        representative-region simulation: one region of the iteration
+        space runs on the exact DES (on the host) and the rest is
+        replicated analytically; results are stamped ``region_approx``.
+        A workload whose region tail has a closed form priced on the card
+        (HPL) adds a ``device=`` keyword for it."""
 
     @abc.abstractmethod
     def fastsim_model(self, platform, *, faults=None) -> FastModel:
-        """The vectorized-simulator surface for this scenario."""
+        """The vectorized-simulator surface for this scenario.  A
+        ``faults`` scenario is folded into the params
+        (``repro_torch.faults.fastsim.apply_faults``) — straggler and
+        bandwidth kinds only; fail-stop raises (DES-only)."""
 
     def des_ranks(self, platform) -> int:
         """How many DES ranks ``des_app`` would spawn (serving guard)."""
@@ -165,7 +178,8 @@ class Workload(abc.ABC):
     # ------------------------------------------------- conveniences
     def predict(self, platform, *, faults=None,
                 device: DeviceLike = "cuda") -> dict:
-        """Fast prediction of this scenario on ``platform``."""
+        """Fast prediction of this scenario on ``platform``, optionally
+        under a degraded-platform ``faults`` scenario."""
         self.validate(platform)
         return self.fastsim_model(platform, faults=faults).predict(
             device=device)
@@ -173,7 +187,11 @@ class Workload(abc.ABC):
     @abc.abstractmethod
     def predict_des(self, platform, *, trace: bool = False,
                     faults=None, regions=None) -> dict:
-        """Full-DES prediction."""
+        """Full-DES prediction; with ``trace=True`` the result carries a
+        ``breakdown``.  ``faults`` injects a degraded-platform scenario
+        (fail-stop runs report ``failed=True``); ``regions`` requests
+        representative-region simulation (see ``des_app``), stamped
+        ``region_approx=True``."""
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.spec.params_dict})"

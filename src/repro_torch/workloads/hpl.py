@@ -66,31 +66,35 @@ class HPLWorkload(Workload):
                 f"{platform.name!r} has {platform.scale.n_ranks}")
 
     def des_app(self, platform, *, trace: bool = False,
-                faults=None, regions=None):
-        if regions is not None:
-            raise NotImplementedError(
-                "HPLWorkload.des_app: representative-region runs "
-                "(regions=) are not ported yet (ROADMAP §1, slice 6: "
-                "scale and TOP500)")
-        return HPLSim(self.config(platform), platform, trace=trace,
-                      faults=faults)
+                faults=None, regions=None, device: DeviceLike = "cuda"):
+        """The DES on the host; with ``regions`` a representative-region
+        run whose unsimulated tail is priced by fastsim on ``device``."""
+        if regions is None:
+            return HPLSim(self.config(platform), platform, trace=trace,
+                          faults=faults)
+        from repro_torch.scale import RegionHPLSim
+        return RegionHPLSim(self.config(platform), platform,
+                            region=regions, trace=trace, faults=faults,
+                            device=device)
 
     def des_ranks(self, platform) -> int:
         return self.config(platform).n_ranks
 
     def fastsim_model(self, platform, *, faults=None) -> HPLFastModel:
+        cfg = self.config(platform)
+        params = platform.fastsim()
         if faults is not None:
-            raise NotImplementedError(
-                "HPLWorkload.fastsim_model: fault scenarios are not ported "
-                "yet (ROADMAP §1, slice 5: workloads and fault mapping)")
-        return HPLFastModel(cfg=self.config(platform),
-                            params=platform.fastsim())
+            from repro_torch.faults.fastsim import apply_faults
+            params = apply_faults(params, faults, grid=(cfg.P, cfg.Q))
+        return HPLFastModel(cfg=cfg, params=params)
 
     def predict_des(self, platform, *, trace: bool = False,
-                    faults=None, regions=None) -> dict:
-        """The full DES (pure Python on the host; no device)."""
+                    faults=None, regions=None,
+                    device: DeviceLike = "cuda") -> dict:
+        """The full DES (pure Python on the host); ``device`` prices a
+        region run's tail and is unused without ``regions``."""
         res = self.des_app(platform, trace=trace, faults=faults,
-                           regions=regions).run()
+                           regions=regions, device=device).run()
         out = {"time_s": res.time_s, "gflops": res.gflops,
                "tflops": res.gflops / 1e3, "events": res.events}
         if res.failed:

@@ -96,11 +96,20 @@ def test_explicit_probes_and_capacity():
 
 
 def test_regions_name_slice_6():
+    """Named when ``regions=`` raised naming slice 6; slice 6 is ported
+    now, so this holds that region probes run (a probe longer than the
+    region is a region run within 10% of the exact DES) and that the
+    bridge fits them."""
+    from repro_torch.scale import RegionSpec
     plat = get_platform("bdw-local")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        des_probe_runs(plat, regions=2)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        fit_fastsim_to_des(plat, regions=2, device="cpu")
+    region = RegionSpec(panels=6, warmup=2)
+    cfg = HPLConfig(N=2048, nb=128, P=2, Q=2, lookahead=0)
+    (c, t), = des_probe_runs(plat, [cfg], regions=region, device="cpu")
+    exact = des_probe_runs(plat, [cfg])[0][1]
+    assert c is cfg and t != exact and abs(t - exact) / exact < 0.10
+    fit = fit_fastsim_to_des(plat, [cfg], regions=region, steps=2,
+                             device="cpu")
+    assert fit.probes == [(cfg, t)]
 
 
 def test_missing_card_raises_before_any_probe(monkeypatch):

@@ -1,0 +1,157 @@
+"""The reference values ``chip_smoke.py`` holds the port to on the card
+are the JAX reference's own.
+
+The card's machine has no jax, so ``chip_smoke.py`` carries the
+reference's answers as ``REFERENCE_*`` constants.  This test reads them
+(and the inputs they were computed from) out of the script with ``ast``,
+without importing it, recomputes every one with the reference package in
+a child interpreter (``torch_reference.run_reference``), and requires
+them equal: DES events and panel marks exactly, times and fitted values
+within 1e-13 relative (ten times tighter than the card's gates, so the
+check does not hang on the last bit of a host's float64 rounding).
+Covered: the transformer step times, the 18-scenario step sweep and the
+step-time gradient; the HPL and transformer fault sweeps on tpu-v5e-pod;
+the region run of Frontera's 16 x 16 DES; the per-scale contention fit;
+and the TOP500 fleet at the library's default tuning.
+"""
+import ast
+import os
+
+import pytest
+
+from torch_reference import ROOT, run_reference
+
+RTOL = 1e-13
+
+CHILD = r"""
+import dataclasses
+import jax
+from jax.experimental import enable_x64
+from repro.core.apps.hpl import HPLConfig
+from repro.faults import as_fault_spec
+from repro.faults.fastsim import sweep_faults
+from repro.platforms import get_platform
+from repro.scale import RegionHPLSim, RegionSpec, fit_contention_at_scale
+from repro.top500 import load_sample, predict_fleet
+from repro.workloads import get_workload, step_time_traced
+
+C = PAYLOAD
+OUT["REFERENCE_STEP_S"] = {
+    name: get_workload("transformer").predict(get_platform(name))["step_s"]
+    for name in C["STEP_PLATFORMS"]}
+pod = get_platform("tpu-v5e-pod")
+model = get_workload("transformer").fastsim_model(pod)
+base = model.params
+grid = [dataclasses.replace(base, link_bw=base.link_bw * (1 + 0.1 * i),
+                            n_layers=float(2 + i),
+                            flops_per_layer=base.flops_per_layer
+                            * (1 + 0.05 * i))
+        for i in range(C["STEP_GRID_LANES"])]
+OUT["REFERENCE_STEP_GRID_S"] = [r["step_s"] for r in model.sweep(grid)]
+with enable_x64(True):
+    val, grad = jax.value_and_grad(lambda lb: step_time_traced(
+        dataclasses.replace(base, link_bw=lb)))(base.link_bw)
+OUT["REFERENCE_STEP_GRAD"] = {"step_s": float(val),
+                              "d_link_bw": float(grad)}
+specs = [as_fault_spec(d) for d in C["FAULT_SPECS"]]
+OUT["REFERENCE_FAULT_SWEEP"] = {
+    kind: {key: [r[key] for r in sweep_faults(get_workload(kind), pod,
+                                              specs)]
+           for key in ("time_s", "slowdown_vs_healthy")}
+    for kind in ("hpl", "transformer")}
+frontera = get_platform("frontera")
+sim = RegionHPLSim(HPLConfig(**C["DES_CFG"]), frontera, region=C["REGION"])
+res = sim.run()
+OUT["REFERENCE_REGION"] = {"time_s": res.time_s, "events": res.events,
+                           "marks": [sim._marks[k] for k in sorted(sim._marks)]}
+fit = C["CONTENTION_FIT"]
+sf = fit_contention_at_scale(
+    frontera, fit["at_ranks"],
+    region=RegionSpec(panels=fit["panels"], warmup=fit["warmup"]),
+    probe_configs=[HPLConfig(bcast=frontera.mpi.bcast, **fit["probe"])],
+    steps=fit["steps"])
+OUT["REFERENCE_CONTENTION"] = {
+    "overrides": sf.overrides,
+    "note": dict(sf.platform.provenance)[f"contention@{fit['at_ranks']}"]}
+rep = predict_fleet(load_sample())
+OUT["REFERENCE_FLEET"] = {
+    "bucket": list(rep.bucket), "compiles": rep.compiles,
+    "factors": dict(sorted(rep.calibration.factors.items())),
+    "median_abs_err": rep.median_abs_err(),
+    "heldout_median_abs_err": rep.calibration.heldout_median_abs_err,
+    "machines": [[e.platform.name, e.split, e.predicted_tflops,
+                  e.calibrated_tflops] for e in rep.entries]}
+"""
+
+INPUTS = ("STEP_PLATFORMS", "STEP_GRID_LANES", "FAULT_SPECS", "DES_CFG",
+          "REGION", "CONTENTION_FIT")
+CONSTANTS = ("REFERENCE_STEP_S", "REFERENCE_STEP_GRID_S",
+             "REFERENCE_STEP_GRAD", "REFERENCE_FAULT_SWEEP",
+             "REFERENCE_REGION", "REFERENCE_CONTENTION", "REFERENCE_FLEET")
+
+
+def _literal(node):
+    """A literal, or ``dict(k=literal, ...)``."""
+    if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "dict":
+        return {kw.arg: _literal(kw.value) for kw in node.keywords}
+    return ast.literal_eval(node)
+
+
+def _script_values() -> dict:
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name) \
+                and node.targets[0].id in INPUTS + CONSTANTS:
+            out[node.targets[0].id] = _literal(node.value)
+    return out
+
+
+@pytest.fixture(scope="module")
+def values():
+    script = _script_values()
+    assert set(script) == set(INPUTS + CONSTANTS), set(script)
+    ref = run_reference(CHILD, {k: script[k] for k in INPUTS}, timeout=900)
+    return script, ref
+
+
+def _same(got, want, path=""):
+    """Equal structure; ints, strings and DES marks exactly, other floats
+    within RTOL."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), path
+        for k in want:
+            _same(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, f"{path}[{i}]")
+    elif isinstance(want, float) and ".marks" not in path:
+        assert got == pytest.approx(want, rel=RTOL, abs=0), path
+    else:
+        assert got == want, path
+
+
+@pytest.mark.parametrize("name", CONSTANTS)
+def test_reference_constant_matches_the_reference(values, name):
+    script, ref = values
+    _same(script[name], ref[name], name)
+
+
+def test_fleet_constant_covers_the_whole_sample(values):
+    script, _ = values
+    fleet = script["REFERENCE_FLEET"]
+    assert len(fleet["machines"]) == 51 and fleet["compiles"] == 1
+    assert fleet["heldout_median_abs_err"] <= 0.15
+    assert {split for _, split, _, _ in fleet["machines"]} \
+        == {"train", "test"}
+
+
+def test_fault_specs_cover_every_closed_form_kind(values):
+    script, _ = values
+    kinds = [{f["kind"] for f in s["faults"]} for s in script["FAULT_SPECS"]]
+    assert {"straggler", "link_degrade", "link_flap",
+            "latency_jitter"} <= set().union(*kinds)
+    assert any(len(k) > 1 for k in kinds)            # a combined spec

@@ -21,8 +21,14 @@ from repro_torch.convert import (fastsim_params_from_numpy,
                                  lm_params_from_reference)
 from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine
-from repro_torch.platforms import fit_fastsim_to_des, get_platform
-from repro_torch.workloads import get_workload
+from repro_torch.faults import FaultSpec, sweep_faults
+from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
+                                   get_platform)
+from repro_torch.scale import (RegionHPLSim, contention_drift,
+                               fit_contention_at_scale)
+from repro_torch.top500 import calibrate_against_des, predict_fleet
+from repro_torch.workloads import (get_workload, simulate_step_fast,
+                                   step_time_traced, sweep_step)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -94,6 +100,9 @@ def _entry_points():
     model = get_workload("hpl").fastsim_model(plat)
     lm = reduced(get_config("qwen2-0.5b"))
     ssm = reduced(get_config("mamba2-780m"))
+    step = get_workload("transformer").fastsim_model(
+        get_platform("tpu-v5e-pod")).params
+    region_cfg = HPLConfig(N=2048, nb=128, P=2, Q=2, lookahead=0)
     return {
         "simulate_hpl_fast": lambda: simulate_hpl_fast(cfg, prm),
         "sweep_hpl": lambda: sweep_hpl(cfg, [prm, prm]),
@@ -116,6 +125,25 @@ def _entry_points():
         "whatif_grid": lambda: whatif_grid(get_workload("hpl"), plat,
                                            {"link_bw": [1.0, 2.0]}),
         "fit_fastsim_to_des": lambda: fit_fastsim_to_des(plat, steps=1),
+        "sweep_step": lambda: sweep_step([step]),
+        "simulate_step_fast": lambda: simulate_step_fast(step),
+        "step_time_traced": lambda: step_time_traced(step),
+        "predict_transformer": lambda: get_workload("transformer").predict(
+            get_platform("tpu-v5e-pod")),
+        "sweep_faults": lambda: sweep_faults(get_workload("hpl"), plat,
+                                             [FaultSpec.straggler(rank=0)]),
+        "RegionHPLSim": lambda: RegionHPLSim(region_cfg, plat, region=6),
+        "predict_des_regions": lambda: get_workload(
+            "hpl", N=2048, nb=128, P=2, Q=2).predict_des(plat, regions=6),
+        "des_probe_runs_regions": lambda: des_probe_runs(
+            plat, [region_cfg], regions=6),
+        "fit_contention_at_scale": lambda: fit_contention_at_scale(
+            plat, 4, region=6, steps=1),
+        "contention_drift": lambda: contention_drift(plat, [4], region=6,
+                                                     steps=1),
+        "predict_fleet": lambda: predict_fleet([plat]),
+        "calibrate_against_des": lambda: calibrate_against_des([plat],
+                                                               steps=1),
     }
 
 
@@ -151,21 +179,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, name):
 
 
 def test_unported_paths_name_their_slice():
-    """The DES paths run now (slice 4); representative regions
-    (``regions=``) still name slice 6 and fault scenarios on the fast
-    model slice 5."""
+    """What is still unported names the slice that owns it (the MoE
+    models, slice 8c); the paths ported since run: the DES (slice 4),
+    representative regions (``regions=``, slice 6) and fault scenarios
+    on the fast model (slice 5)."""
     plat = get_platform("bdw-local")
     wl = get_workload("hpl")
     app = wl.des_app(plat)
     assert app.cfg == wl.config(plat) and app.run().events == 10597
     out = wl.predict_des(plat)
     assert (out["time_s"], out["events"]) == (0.05864729600365412, 10597)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        wl.des_app(plat, regions=2)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        wl.predict_des(plat, regions=2)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        wl.fastsim_model(plat, faults={"faults": []})
+    from repro_torch.scale import RegionHPLSim, RegionSpec
+    region = RegionSpec(panels=6, warmup=2)
+    assert isinstance(wl.des_app(plat, regions=region, device="cpu"),
+                      RegionHPLSim)
+    out = wl.predict_des(plat, regions=region, device="cpu")
+    assert out["region_approx"] and out["panels_simulated"] == 6
+    assert out["events"] < 10597
+    model = wl.fastsim_model(plat, faults={"faults": []})
+    assert model.params == plat.fastsim()
+    with pytest.raises(NotImplementedError, match="slice 8c"):
+        build_model(get_config("qwen3-moe-235b-a22b"), device="cpu")
     assert wl.des_ranks(plat) == HPLConfig(4096, 128, 4, 4).n_ranks
 
 

@@ -55,6 +55,23 @@ after:
     built and the held-out median error the reference's (<= 15%), with
     the sweep's wall time and CUDA launches per loop step.  Each prints
     its host wall time, and no kernel of the port runs on these paths.
+  * The prediction service and the campaign layer, against the reference
+    package's answers as above: ``PredictionService(cache=True)`` serves
+    one mixed wave (HPL on bdw-local, tpu-v5e-pod and syn-mp-2pod-v5e,
+    the transformer on tpu-v5e-pod and syn-torus-fugaku-4k, a straggler,
+    a DES breakdown on bdw-local) in two sweeps, every time within 1e-12
+    and ``stats`` equal; the same wave again from the cache (all hits,
+    payloads unchanged); 8 identical requests coalesce onto one;
+    ``request_key`` digests equal the reference's; after ``warm()`` a
+    4 + 4 wave adds no compile; ``HPLPredictionService.predict_platforms``
+    gives the reference times; one budgeted breakdown (``timeout_s=1e-9``)
+    degrades to its fastsim answer.  ``run_campaign`` runs the
+    reference's 36-run acceptance matrix (one fastsim and one stepsim
+    dispatch, two service sweeps; journal records equal apart from
+    floats, which are within 1e-12; a rerun's run lines byte-equal) and
+    the two-edition TOP500 study (``--limit 12 --max-ranks 256``: drift
+    table within 1e-12, at most one fleet program per edition).  Each
+    prints its host walls; no kernel of the port runs on these paths.
   * LM serving: ``ServeEngine`` on qwen2-0.5b at full width (24 layers,
     d_model 896, 14 query heads in 2 KV groups, vocab 151,936) with seeded
     random weights, 8 requests of 128 prompt tokens and 32 new tokens in
@@ -94,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -327,6 +345,201 @@ REFERENCE_FLEET = {
          1793.2720919133853, 1580.0],
         ["r051-astra", "test", 1666.5150955179356, 1666.427947601552],
     ]}
+# ---- slice 7 (the prediction service and the campaign layer).  As
+# above, every REFERENCE_* value is the reference package's answer and
+# tests/test_torch_chip_constants.py holds these copies to it.
+# One mixed wave through PredictionService(cache=True): HPL on three
+# shape buckets, the transformer on two fabrics, a straggler and one DES
+# breakdown; the requests whose request_key digests are held to the
+# reference's; the reference's acceptance campaign (tests/test_campaign.py:
+# 2 workloads x 3 platforms x N in {1536, 1920} x {no fault, straggler
+# 1.5} x seeds {0, 1}, 36 runs); the two-edition TOP500 study as the CLI
+# runs it (--limit 12 --max-ranks 256).
+SERVE_WAVE = [
+    {"rid": 0, "platform": "bdw-local"},
+    {"rid": 1, "platform": "tpu-v5e-pod"},
+    {"rid": 2, "platform": "syn-mp-2pod-v5e"},
+    {"rid": 3, "workload": "transformer", "platform": "tpu-v5e-pod"},
+    {"rid": 4, "workload": "transformer", "platform": "syn-torus-fugaku-4k"},
+    {"rid": 5, "platform": "bdw-local",
+     "faults": {"seed": 0, "name": "", "faults": [
+         {"kind": "straggler", "start": 0.0, "duration": 0.0, "rank": 0,
+          "node": -1, "link_frac": 0.0, "factor": 1.5, "period": 0.0,
+          "duty": 0.5, "cycles": 0, "sigma": 0.0}]}},
+    {"rid": 6, "platform": "bdw-local", "breakdown": True},
+]
+SERVE_KEY_RIDS = (1, 4, 5)
+CAMPAIGN_ACCEPT = {
+    "workloads": ["hpl", "transformer"],
+    "platforms": ["tpu-v5e-pod", "syn-torus-fugaku-4k", "syn-torus-bgq-8k"],
+    "axes": {"N": [1536, 1920]},
+    "faults": [None, {"seed": 0, "name": "", "faults": [
+        {"kind": "straggler", "start": 0.0, "duration": 0.0, "rank": 0,
+         "node": -1, "link_frac": 0.0, "factor": 1.5, "period": 0.0,
+         "duty": 0.5, "cycles": 0, "sigma": 0.0}]}],
+    "seeds": [0, 1]}
+EDITION_STUDY = {"editions": ["2020_06", "2020_11"], "limit": 12,
+                 "max_ranks": 256, "panels_cap": 2048}
+# The wave's times, stats (first pass, resubmitted, 8 identical requests)
+# and digests; each campaign's run records as a sha256 over the records
+# with their result floats nulled (chip_smoke.result_floats) plus those
+# floats in order, the acceptance campaign's dispatch gates, and the
+# study's drift table (predicted and published drift per machine, the
+# calibration factor per fabric family in each edition).
+REFERENCE_SERVE = {
+    "time_s": [
+        0.058538299545155895, 88.82483519304056, 168.19366046372835,
+        0.004003977542605753, 0.03162865609031491, 0.06038860573751427,
+        0.058538299545155895],
+    "stats": {
+        "requests": 7,
+        "batches": 1,
+        "scenarios": 7,
+        "sweeps": 2,
+        "des_breakdowns": 1,
+        "retries": 0,
+        "fallbacks": 0,
+        "errors": 0,
+        "cache_hits": 0,
+        "cache_misses": 7,
+        "coalesced": 0,
+    },
+    "cached_stats": {
+        "requests": 14,
+        "batches": 2,
+        "scenarios": 14,
+        "sweeps": 2,
+        "des_breakdowns": 1,
+        "retries": 0,
+        "fallbacks": 0,
+        "errors": 0,
+        "cache_hits": 7,
+        "cache_misses": 7,
+        "coalesced": 0,
+    },
+    "coalesced_stats": {
+        "requests": 8,
+        "batches": 1,
+        "scenarios": 8,
+        "sweeps": 1,
+        "des_breakdowns": 0,
+        "retries": 0,
+        "fallbacks": 0,
+        "errors": 0,
+        "cache_hits": 0,
+        "cache_misses": 8,
+        "coalesced": 7,
+    },
+    "keys": {
+        "1": ("7497d87cb2d766f1552990361d9568c6"
+              "f33e25bf9dcea5fbb1dbb7d9dc902c60"),
+        "4": ("b689526dfd5eb3633b002cda75b6c3f5"
+              "d9fe135e42a9279b65e9aa4904282282"),
+        "5": ("4d54a5a34304b779d32e93e58352d0eb"
+              "541577e987e411d16d65cd77b91ff2db"),
+    },
+}
+REFERENCE_CAMPAIGN = {
+    "skeleton_sha256": ("61787c917b733475bf647b6729f7c311"
+                        "34d08960f82e9f32efd6a57a66fe0742"),
+    "dispatches": {
+        "fastsim_dispatches": 1,
+        "stepsim_dispatches": 1,
+        "serve_sweeps": 2,
+    },
+    "floats": [
+        68.90027956830352, 0.06890027956830351, 0.035115358938442295,
+        68.90027956830352, 0.06890027956830351, 0.035115358938442295,
+        68.86420968694777, 0.06886420968694777, 0.03513375175579157,
+        68.86420968694777, 0.06886420968694777, 0.03513375175579157,
+        111.97785875955144, 0.11197785875955144, 0.04218799727313989,
+        111.97785875955144, 0.11197785875955144, 0.04218799727313989,
+        111.92208780673303, 0.11192208780673303, 0.04220901961869769,
+        111.92208780673303, 0.11192208780673303, 0.04220901961869769,
+        44.69062409772786, 0.04469062409772786, 0.0541379337802313,
+        44.69062409772786, 0.04469062409772786, 0.0541379337802313,
+        44.69049714725104, 0.04469049714725104, 0.05413808756765695,
+        44.69049714725104, 0.04469049714725104, 0.05413808756765695,
+        72.27060734752075, 0.07227060734752075, 0.06536712189623049,
+        72.27060734752075, 0.07227060734752075, 0.06536712189623049,
+        72.27039419486927, 0.07227039419486926, 0.06536731468852819,
+        72.27039419486927, 0.07227039419486926, 0.06536731468852819,
+        21.719732517279233, 0.021719732517279232, 0.11139446796019192,
+        21.719732517279233, 0.021719732517279232, 0.11139446796019192,
+        21.71957146571576, 0.021719571465715758, 0.11139529395499828,
+        21.71957146571576, 0.021719571465715758, 0.11139529395499828,
+        35.14762613741561, 0.0351476261374156, 0.1344079848104178,
+        35.14762613741561, 0.0351476261374156, 0.1344079848104178,
+        35.14735567029729, 0.03514735567029729, 0.1344090191112816,
+        35.14735567029729, 0.03514735567029729, 0.1344090191112816,
+        0.02858652105992789, 0.004003977542605753, 0.004003977542605753,
+        16367724.169938715, 0.02858652105992789, 0.004003977542605753,
+        0.004003977542605753, 16367724.169938715, 0.042209436618326567,
+        0.004067566313908629, 0.004067566313908629, 16111845.497369353,
+        0.042209436618326567, 0.004067566313908629, 0.004067566313908629,
+        16111845.497369353, 0.21097185870251517, 0.03162865609031491,
+        0.03162865609031491, 33152720.65325238, 0.21097185870251517,
+        0.03162865609031491, 0.03162865609031491, 33152720.65325238,
+        0.28325807545825826, 0.035335742959001784, 0.035335742959001784,
+        29674655.524198484, 0.28325807545825826, 0.035335742959001784,
+        0.035335742959001784, 29674655.524198484, 0.5292154889506702,
+        0.2080447044705882, 0.2080447044705882, 10080295.027631812,
+        0.5292154889506702, 0.2080447044705882, 0.2080447044705882,
+        10080295.027631812, 0.6053696932903697, 0.27280969270588235,
+        0.27280969270588235, 7687234.200512631, 0.6053696932903697,
+        0.27280969270588235, 0.27280969270588235, 7687234.200512631],
+}
+REFERENCE_EDITION_STUDY = {
+    "skeleton_sha256": ("4306b319c0fcaede50c681049d2ffab0"
+                        "fcf95bcbf45f4bdd9c64cbccad377382"),
+    "machines": {
+        "selene": [1.3197877718348794, 1.3009427121102248],
+        "fugaku": [0.0637258441027122, 0.0637258441027122],
+        "frontera": [0.0412860056978696, 0.0],
+        "summit": [0.041286005697869464, 0.0],
+        "sierra": [0.04128600569786945, 0.0],
+        "hpc5": [0.041286005697869374, 0.0],
+        "marconi-100": [0.041286005697869305, 0.0],
+        "piz-daint": [0.0, 0.0],
+        "sunway-taihulight": [0.0, 0.0],
+        "tianhe-2a": [0.0, 0.0],
+    },
+    "factors": {
+        "__global__": [1.0383398945659839, 1.062648202404732],
+        "aries": [1.062648202404732, 1.062648202404732],
+        "custom": [1.1546113964996114, 1.1546113964996114],
+        "infiniband": [0.9963240706414308, 1.0374583118988574],
+        "tofu": [1.0383398945659839, 1.0564868512121692],
+    },
+    "floats": [
+        415530.0, 400186.8773169768, 594.0, 415530.0, 0.0, 132817.8378251317,
+        133307.8681313239, 18.0, 148600.0, -0.10620566739480693,
+        87956.91029808264, 88281.42658588607, 16.875, 94640.0,
+        -0.07061590978357309, 93014.6, 80559.22562516584, 160.0, 93014.6, 0.0,
+        87524.49975988809, 75804.29227117675, 62.5, 61444.5,
+        0.4244480752530835, 36783.53598544582, 36919.24853503206, 7.109375,
+        35450.0, 0.037617376176186795, 22067.172972166503, 22148.58962301264,
+        1.09375, 27580.0, -0.19988495387358582, 22693.67243918194,
+        22777.40055459246, 31.28125, 23516.4, -0.03498526818807558,
+        20074.23860157536, 20148.302337663703, 3.828125, 21640.0,
+        -0.07235496295862485, 21230.0, 19978.38979255536, 11.140625, 21230.0,
+        0.0, 22788.375342373143, 21444.891442721993, 56.2421875, 20158.7,
+        0.13044865702516245, 21001.14483710227, 21078.62838602483, 4.25,
+        19880.0, 0.05639561554840396, 442010.0, 418377.18992229394, 621.0,
+        442010.0, 0.0, 138301.35583435878, 133307.8681313239, 18.0, 148600.0,
+        -0.06930446948614549, 91588.29979781627, 88281.42658588607, 16.875,
+        94640.0, -0.032245352939388475, 93014.6, 80559.22562516584, 160.0,
+        93014.6, 0.0, 51191.158019797, 49342.85786009266, 2.1875, 63460.0,
+        -0.19333189379456345, 87524.49975988809, 75804.29227117675, 62.5,
+        61444.5, 0.4244480752530835, 51053.221618438176, 49209.90176944613,
+        6.5625, 44120.0, 0.15714464230367578, 38302.18126172872,
+        36919.24853503206, 7.109375, 35450.0, 0.08045645308120512,
+        23630.603528811593, 22777.40055459246, 31.28125, 23516.4,
+        0.0048563355280396335, 40909.359802058425, 39432.29268382083,
+        7.92578125, 22400.0, 0.8263107054490368, 20903.023730860386,
+        20148.302337663703, 3.828125, 21640.0, -0.03405620467373446, 21230.0,
+        19978.38979255536, 11.140625, 21230.0, 0.0],
+}
 # Published HBM rate of one H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), FLOP/s: bf16 on
@@ -392,7 +605,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def rel_err(a: float, b: float) -> float:
+def rel_err(a, b) -> float:
+    """|a - b| / |b|: 0 where ``a == b`` (zeros and None included), inf
+    against a zero or None ``b`` that ``a`` does not equal."""
+    if a == b:
+        return 0.0
+    if a is None or b is None or b == 0:
+        return math.inf
     return abs(a - b) / abs(b)
 
 
@@ -921,7 +1140,7 @@ def fleet_phase(dev):
     launches, busy = fleet_step_profile(rep, dev)
     print(f"fleet top500 2020_06 at {FleetTuning()}: machines="
           f"{len(rep.entries)} bucket={rep.bucket} loop_steps={steps} "
-          f"programs_built={built} compiles={rep.compiles} "
+          f"new_bucket_shapes={built} compiles={rep.compiles} "
           f"max_rel_err predicted={pred_err:.3e} calibrated={cal_err:.3e} "
           f"factors={fac_err:.3e} heldout_median={held_err:.3e} "
           f"median={med_err:.3e} (tol "
@@ -941,11 +1160,226 @@ def fleet_phase(dev):
     check(names == [w[:2] for w in want["machines"]],
           "fleet: machines or splits differ from the reference's")
     check(built == 1 and rep.compiles == 1,
-          f"fleet: {built} bucket programs built (want 1)")
+          f"fleet: {built} new bucket shapes (want 1)")
     check(set(factors) == set(want["factors"]), "fleet: family set differs")
     worst = max(pred_err, cal_err, fac_err, held_err, med_err)
     check(worst <= 1e-12, f"fleet: rel err {worst} > 1e-12")
     check(held <= 0.15, f"fleet: held-out median error {held} > 0.15")
+
+
+def result_floats(records):
+    """The sha256 of ``campaign_run`` records with every float under
+    ``meta.result`` replaced by null, and those floats in sorted-key
+    order: the records' identity compares exactly, the answers within a
+    tolerance (tests/test_torch_chip_constants.py computes the same)."""
+    floats = []
+
+    def strip(x):
+        if isinstance(x, float):
+            floats.append(x)
+            return None
+        if isinstance(x, dict):
+            return {k: strip(x[k]) for k in sorted(x)}
+        if isinstance(x, list):
+            return [strip(v) for v in x]
+        return x
+
+    recs = json.loads(json.dumps(records))
+    for rec in recs:
+        rec["meta"]["result"] = strip(rec["meta"]["result"])
+    digest = hashlib.sha256(
+        json.dumps(recs, sort_keys=True).encode()).hexdigest()
+    return digest, floats
+
+
+def wave_requests(specs):
+    """``WorkloadRequest``s from the JSON form of ``SERVE_WAVE``."""
+    from repro_torch.faults import FaultSpec
+    from repro_torch.serve import WorkloadRequest
+    return [WorkloadRequest(
+        rid=d["rid"], workload=d.get("workload", "hpl"),
+        platform=d["platform"],
+        faults=(None if d.get("faults") is None
+                else FaultSpec.from_dict(d["faults"])),
+        breakdown=d.get("breakdown", False)) for d in specs]
+
+
+def predict_service_phase(dev):
+    """Slice 7's serving layer on the card: ``PredictionService`` with
+    its result cache serves ``SERVE_WAVE`` (one sweep per family, one DES
+    breakdown), the wave again from the cache, 8 identical requests
+    (coalesced onto one), the warm pool then a 4 + 4 wave (no new shape),
+    ``HPLPredictionService.predict_platforms`` and one budgeted breakdown
+    whose DES cannot start (``timeout_s=1e-9``), which must degrade to its
+    fastsim answer."""
+    from repro_torch.core import fastsim
+    from repro_torch.serve import (HPLPredictionService, PredictionService,
+                                   WorkloadRequest)
+    from repro_torch.workloads import stepsim
+    want = REFERENCE_SERVE
+    n = len(SERVE_WAVE)
+    svc = PredictionService(cache=True, device=dev)
+    t0 = time.perf_counter()
+    out = svc.predict_batch(wave_requests(SERVE_WAVE))
+    wall = time.perf_counter() - t0
+    stats = dict(svc.stats)
+    times = [out[d["rid"]]["time_s"] for d in SERVE_WAVE]
+    err = max(rel_err(t, w) for t, w in zip(times, want["time_s"]))
+    print(f"serve wave: {n} requests (HPL on 3 buckets, transformer on 2, "
+          f"a straggler, a DES breakdown) host_wall_s={wall:.3f} "
+          f"predictions_per_s={n / wall:.2f} max_rel_err={err:.3e} "
+          f"(tol 1e-12) stats={stats}", flush=True)
+    check(err <= 1e-12, f"serve wave: rel err {err} > 1e-12")
+    check(stats == want["stats"], f"serve wave: stats {stats} != "
+          f"reference {want['stats']}")
+    check(stats["sweeps"] == 2 and stats["des_breakdowns"] == 1
+          and stats["retries"] == stats["errors"] == stats["fallbacks"] == 0,
+          "serve wave: sweeps, breakdowns or hardening counts off")
+    check(not any(r.get("degraded") for r in out.values()),
+          "serve wave: a result is degraded")
+    check("breakdown" in out[6], "serve wave: no DES breakdown")
+
+    t0 = time.perf_counter()
+    hits = svc.predict_batch(wave_requests(SERVE_WAVE))
+    cwall = time.perf_counter() - t0
+    stamped = all(hits[r].pop("cached", False) is True for r in hits)
+    same = all({k: v for k, v in hits[r].items() if k != "latency_s"}
+               == {k: v for k, v in out[r].items() if k != "latency_s"}
+               for r in out)
+    print(f"serve cached wave: host_wall_s={cwall:.6f} "
+          f"cached_predictions_per_s={n / cwall:.1f} "
+          f"cache_speedup={wall / cwall:.1f}x stats={dict(svc.stats)}",
+          flush=True)
+    check(stamped and same, "serve cached wave: payloads differ from the "
+          "first pass or lack the cached stamp")
+    check(dict(svc.stats) == want["cached_stats"],
+          f"serve cached wave: stats {dict(svc.stats)}")
+
+    dup = PredictionService(cache=True, device=dev)
+    dup.predict_batch(wave_requests(
+        [dict(SERVE_WAVE[0], rid=i) for i in range(8)]))
+    print(f"serve 8 identical requests: stats={dict(dup.stats)}", flush=True)
+    check(dict(dup.stats) == want["coalesced_stats"]
+          and dup.stats["coalesced"] == 7, "serve: 8 requests did not "
+          "coalesce onto one")
+    for rid in SERVE_KEY_RIDS:
+        req = wave_requests([SERVE_WAVE[rid]])[0]
+        svc._resolve(req)
+        check(svc._cache_key(req) == want["keys"][str(rid)],
+              f"serve: request_key of request {rid} differs from the "
+              "reference's")
+
+    wsvc = PredictionService(device=dev)
+    t0 = time.perf_counter()
+    report = wsvc.warm(["hpl", "transformer"], ["tpu-v5e-pod"], count=4)
+    warm_wall = time.perf_counter() - t0
+    pre = fastsim.trace_count() + stepsim.trace_count()
+    t0 = time.perf_counter()
+    served = wsvc.predict_batch([
+        WorkloadRequest(rid=i, workload=w, platform="tpu-v5e-pod")
+        for i, w in enumerate(["hpl", "transformer"] * 4)])
+    after = fastsim.trace_count() + stepsim.trace_count() - pre
+    print(f"serve warm pool: report={report} warm_wall_s={warm_wall:.3f}; "
+          f"4 + 4 wave: compiles={after} host_wall_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    check(len(served) == 8 and after == 0,
+          f"serve warm pool: the wave after warm() saw {after} compiles")
+
+    hsvc = HPLPredictionService(device=dev)
+    t0 = time.perf_counter()
+    got = hsvc.predict_platforms(
+        ["bdw-local", "tpu-v5e-pod", "syn-mp-2pod-v5e"])
+    errs = {k: rel_err(v["time_s"], REFERENCE_TIME_S[k])
+            for k, v in got.items()}
+    print(f"HPLPredictionService.predict_platforms: rel_err={errs} "
+          f"stats={hsvc.stats} host_wall_s={time.perf_counter() - t0:.3f}",
+          flush=True)
+    check(all(e <= TOL[k] for k, e in errs.items()),
+          f"predict_platforms: {errs}")
+
+    dsvc = PredictionService(device=dev)
+    late = dsvc.predict_batch([WorkloadRequest(
+        rid=0, workload="hpl", platform="bdw-local", breakdown=True,
+        timeout_s=1e-9)])[0]
+    reason = late.get("fallback_reason", "")
+    print(f"serve planted degradation (timeout_s=1e-9, breakdown): "
+          f"degraded={late.get('degraded')} reason={reason!r} "
+          f"time_s={late['time_s']!r}", flush=True)
+    check(late.get("degraded") is True and "breakdown" not in late
+          and reason.startswith(("deadline_exceeded", "wall_deadline"))
+          and dsvc.stats["fallbacks"] == 1,
+          "serve: the budgeted breakdown did not degrade")
+    check(rel_err(late["time_s"], REFERENCE_TIME_S["bdw-local"]) <= 1e-12,
+          "serve: the degraded answer is not the fastsim answer")
+
+
+def campaign_phase(dev):
+    """Slice 7's campaign layer on the card: the reference's acceptance
+    matrix (36 runs, one sweep per family), twice (byte-equal run lines),
+    and the two-edition TOP500 study as the CLI drives it, each against
+    the reference's journal records and drift table."""
+    from repro_torch.campaign import (CampaignSpec, campaign_report,
+                                      edition_study_spec, run_campaign)
+    from repro_torch.top500 import FleetTuning
+    spec = CampaignSpec.make("accept", **CAMPAIGN_ACCEPT)
+    want = REFERENCE_CAMPAIGN
+    t0 = time.perf_counter()
+    res = run_campaign(spec, device=dev)
+    wall = time.perf_counter() - t0
+    d = res.summary["meta"]["dispatches"]
+    digest, floats = result_floats(res.run_records)
+    err = max(rel_err(a, b) for a, b in zip(floats, want["floats"]))
+    print(f"campaign accept: {len(res.run_records)} runs host_wall_s="
+          f"{wall:.3f} dispatches={d} records_equal="
+          f"{digest == want['skeleton_sha256']} result_floats="
+          f"{len(floats)} max_rel_err={err:.3e} (tol 1e-12)", flush=True)
+    check({k: d[k] for k in want["dispatches"]} == want["dispatches"],
+          f"campaign: dispatches {d}")
+    check(digest == want["skeleton_sha256"],
+          "campaign: run records differ from the reference's")
+    check(len(floats) == len(want["floats"]) and err <= 1e-12,
+          f"campaign: result floats off by {err}")
+    again = run_campaign(spec, device=dev)
+    lines = [[l for l in r.lines() if '"campaign_run"' in l]
+             for r in (res, again)]
+    check(lines[0] == lines[1], "campaign: a rerun's run lines differ")
+
+    study = EDITION_STUDY
+    want = REFERENCE_EDITION_STUDY
+    t0 = time.perf_counter()
+    res = run_campaign(
+        edition_study_spec(study["editions"], limit=study["limit"]),
+        tuning=FleetTuning(max_ranks=study["max_ranks"],
+                           panels_cap=study["panels_cap"]), device=dev)
+    swall = time.perf_counter() - t0
+    drift = campaign_report(res.records)["drift"]
+    machines = {m["machine"]: [m["predicted_drift"], m["published_drift"]]
+                for m in drift["machines"]}
+    factors = {f["family"]: [f[f"factor_{drift['from']}"],
+                             f[f"factor_{drift['to']}"]]
+               for f in drift["calibration_factors"]}
+    digest, floats = result_floats(res.run_records)
+    ok = (machines.keys() == want["machines"].keys()
+          and factors.keys() == want["factors"].keys()
+          and all(rel_err(a, b) <= 1e-12 for k in machines
+                  for a, b in zip(machines[k], want["machines"][k]))
+          and all(rel_err(a, b) <= 1e-12 for k in factors
+                  for a, b in zip(factors[k], want["factors"][k]))
+          and len(floats) == len(want["floats"])
+          and all(rel_err(a, b) <= 1e-12
+                  for a, b in zip(floats, want["floats"])))
+    compiles = {e: m["compiles"]
+                for e, m in res.summary["meta"]["editions"].items()}
+    print(f"campaign edition study {study}: {len(res.run_records)} runs "
+          f"host_wall_s={swall:.3f} new bucket shapes per edition={compiles} "
+          f"fugaku predicted/published drift={machines.get('fugaku')} "
+          f"records_equal={digest == want['skeleton_sha256']} "
+          f"drift_and_floats_within_1e-12={ok}", flush=True)
+    check(digest == want["skeleton_sha256"] and ok,
+          "campaign edition study: records or drift differ from the "
+          "reference's")
+    check(all(c <= 1 for c in compiles.values()),
+          f"campaign edition study: new bucket shapes {compiles}")
 
 
 def network_phase(rates_k, pairs):
@@ -1997,11 +2431,13 @@ def main() -> int:
     check(all(k.launches == 0 for k in counted),
           "a kernel of the port was launched on the DES/calibration path")
 
-    # ---- slices 5 and 6: the transformer step model, fault sweeps, a
-    # representative region, per-scale contention and the TOP500 fleet
-    # (no kernel of the port's runs on these paths; the counts must stay 0)
+    # ---- slices 5 to 7: the transformer step model, fault sweeps, a
+    # representative region, per-scale contention, the TOP500 fleet, the
+    # prediction service and the campaign layer (no kernel of the port's
+    # runs on these paths; the counts must stay 0)
     for phase in (transformer_phase, fault_phase, region_phase,
-                  contention_phase, fleet_phase):
+                  contention_phase, fleet_phase, predict_service_phase,
+                  campaign_phase):
         for kernel in counted:
             kernel.launches = 0
         phase(dev)

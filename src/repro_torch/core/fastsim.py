@@ -24,6 +24,7 @@ recurrence under autograd (``simulate_time_traced``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -287,18 +288,99 @@ def _sim_core(N, nb, P, Q, prm: FastSimParams,
     return total + 2.0 * Nf * Nf / (peak * Pf * Qf) + Nf / nbf * alpha
 
 
+# ------------------------------------------------------- lane sharding
+# Device-sharded batch dispatch: the sweep engine's trailing scenario
+# axis is embarrassingly parallel (every lane is an independent
+# recurrence), so when more than one local device is available the
+# padded lane axis can be split across them, one contiguous block of
+# lanes per device, with the results concatenated in lane order.  Off by
+# default; the single-device (or indivisible-batch) fallback takes the
+# exact unsharded path with the same tensors, so results are bitwise-
+# identical to an unsharded dispatch by construction.
+#
+# Unlike the reference's one SPMD program, the split here is serial on
+# the host: one thread issues every block's panel loop in turn (all of
+# them before the first result is copied back, so the cards run
+# alongside each other), and the loop is bound by host dispatch, not by
+# the card.  k cards therefore cost about k times the host wall of one
+# and cannot speed up a sweep; the switch exists for parity with the
+# reference's API, not as a throughput option.
+_LANE_SHARDING = False
+
+
+def set_lane_sharding(enabled: bool) -> bool:
+    """Enable/disable device-sharded sweep dispatch; returns the
+    previous setting (for restoration)."""
+    global _LANE_SHARDING
+    prev = _LANE_SHARDING
+    _LANE_SHARDING = bool(enabled)
+    return prev
+
+
+@contextlib.contextmanager
+def lane_sharding(enabled: bool = True):
+    """Scoped ``set_lane_sharding`` — the serving layer wraps a wave's
+    family dispatches in this context when ``shard=True``."""
+    prev = set_lane_sharding(enabled)
+    try:
+        yield
+    finally:
+        set_lane_sharding(prev)
+
+
+def _local_devices(device: torch.device) -> List[torch.device]:
+    """The devices a sharded dispatch from ``device`` may split over:
+    every CUDA device for a CUDA device, the one CPU otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def shard_device_count(device: DeviceLike = "cuda") -> int:
+    """How many local devices a sharded dispatch would split over:
+    ``torch.cuda.device_count()`` for a CUDA device, 1 for the CPU."""
+    return len(_local_devices(torch.device(device)))
+
+
+def _shard_lanes(n_lanes: int, device: torch.device,
+                 devices: Optional[Sequence[torch.device]] = None
+                 ) -> Optional[List[torch.device]]:
+    """The devices ``n_lanes`` padded lanes split over, one contiguous
+    block each, or None for the unsharded path: sharding off, one
+    device, or a lane count the device count does not divide.
+    ``devices`` overrides the local device list (a CPU test passes
+    ``[cpu] * 4``)."""
+    if not _LANE_SHARDING:
+        return None
+    devs = list(devices) if devices is not None else _local_devices(device)
+    if len(devs) <= 1 or n_lanes % len(devs):
+        return None
+    return devs
+
+
+def _record_shard(m, devices: Optional[Sequence[torch.device]],
+                  prefix: str = "fastsim") -> None:
+    if m.enabled and devices is not None:
+        m.counter(f"{prefix}.sharded_dispatches").inc()
+        m.gauge(f"{prefix}.shard_devices").set(len(devices))
+
+
 # ----------------------------------------------------------- bucket cache
-# Every dispatch runs on the one device it is given: the reference's
-# lane sharding across devices (set_lane_sharding) waits for the serving
-# slice, and its single-device fallback is this path.
-_TRACE_COUNT = 0
+# The reference jit-compiles one program per bucket and retraces it for
+# each new padded lane count.  The port keeps one program per (bucket,
+# mode, device) and counts each (bucket, mode, padded lane count, device)
+# shape it dispatches, so the compile counter moves where the
+# reference's does.
+_SHAPES_SEEN: set = set()
 
 
 def trace_count() -> int:
-    """How many bucket programs have been built so far (misses of the
-    per-bucket LRU; they stand for the reference's compiles) — for
-    cache-hit assertions in tests and benchmarks."""
-    return _TRACE_COUNT
+    """How many distinct (bucket, mode, padded lane count, device) shapes
+    the bucket programs have been dispatched at — the port's stand-in for
+    the reference's (re)trace count, for cache-hit assertions in tests and
+    benchmarks."""
+    return len(_SHAPES_SEEN)
 
 
 @functools.lru_cache(maxsize=128)
@@ -308,8 +390,6 @@ def _compiled(n_panels_max: int, P_max: int, Q_max: int, mode: str,
     (one scenario) | 'params' (shared geometry, (B,) params — the
     trailing-batch fast path for what-if grids) | 'batch' (per-lane
     geometry and params for mixed-config sweeps)."""
-    global _TRACE_COUNT
-    _TRACE_COUNT += 1
     tb = _tables(P_max, Q_max, torch.device(device))
 
     def fn(N, nb, P, Q, prm):
@@ -357,20 +437,40 @@ def _pad_pow2(idxs: List[int]) -> List[int]:
     return idxs + [idxs[-1]] * (pad - len(idxs))
 
 
+def _run_block(key: Tuple[int, int, int], mode: str,
+               cfgs: Sequence[HPLConfig], prms: Sequence[FastSimParams],
+               device: torch.device) -> torch.Tensor:
+    """Issue one bucket program over ``len(prms)`` lanes on one device;
+    the lane times stay there (the caller copies them back)."""
+    _SHAPES_SEEN.add((key, mode, len(prms), str(device)))
+    fn = _compiled(*key, mode, str(device))
+    with torch.no_grad():
+        return fn(*_geometry(cfgs, device), _stack_params(prms, device))
+
+
 def _dispatch(key: Tuple[int, int, int], mode: str,
               cfgs: Sequence[HPLConfig], prms: Sequence[FastSimParams],
               live: int, device: torch.device) -> np.ndarray:
     """Run one bucket program over ``len(prms)`` lanes (``cfgs`` is one
-    shared geometry or one per lane); returns the lane times."""
+    shared geometry or one per lane); returns the lane times.  Under lane
+    sharding each device runs its contiguous block of lanes; every block
+    is issued before the first is copied back."""
     m = get_global_metrics()
     pre, t0 = trace_count(), time.perf_counter()
-    fn = _compiled(*key, mode, str(device))
-    with torch.no_grad():
-        out = fn(*_geometry(cfgs, device), _stack_params(prms, device))
-    out = out.cpu().numpy()
+    shard = _shard_lanes(len(prms), device)
+    if shard is None:
+        out = _run_block(key, mode, cfgs, prms, device).cpu().numpy()
+    else:
+        per = len(prms) // len(shard)
+        blocks = [_run_block(key, mode,
+                             cfgs if len(cfgs) == 1 else cfgs[i:i + per],
+                             prms[i:i + per], dev)
+                  for i, dev in zip(range(0, len(prms), per), shard)]
+        out = np.concatenate([b.cpu().numpy() for b in blocks])
     if m.enabled:
         _record_dispatch(m, key, pre, time.perf_counter() - t0, live,
                          len(prms))
+        _record_shard(m, shard)
     return out
 
 

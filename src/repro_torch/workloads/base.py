@@ -152,7 +152,7 @@ class Workload(abc.ABC):
 
     @abc.abstractmethod
     def des_app(self, platform, *, trace: bool = False, faults=None,
-                regions=None):
+                regions=None, device: DeviceLike = "cuda"):
         """The discrete-event application, built from the platform spec;
         the returned object has ``.run()`` and (traced) ``.trace``.
         ``faults`` is an optional ``repro_torch.faults.FaultSpec`` (or
@@ -161,8 +161,9 @@ class Workload(abc.ABC):
         representative-region simulation: one region of the iteration
         space runs on the exact DES (on the host) and the rest is
         replicated analytically; results are stamped ``region_approx``.
-        A workload whose region tail has a closed form priced on the card
-        (HPL) adds a ``device=`` keyword for it."""
+        ``device`` is where a region tail with a closed form is priced
+        (HPL's, by fastsim); a workload whose DES runs only on the host
+        accepts it and ignores it, so callers pass it uniformly."""
 
     @abc.abstractmethod
     def fastsim_model(self, platform, *, faults=None) -> FastModel:

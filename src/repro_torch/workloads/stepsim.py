@@ -28,10 +28,11 @@ import dataclasses
 import time
 from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.core.fastsim import _pad_pow2
+from repro_torch.core.fastsim import _pad_pow2, _record_shard, _shard_lanes
 from repro_torch.obs.metrics import RATIO_BUCKETS, get_global_metrics
 
 F64 = torch.float64
@@ -109,9 +110,9 @@ def _step_core(p: StepParams):
 # The reference jit-compiles the step core once per lane shape; the port
 # runs it eagerly and builds no program.  It only records each (padded
 # lane count, device) it has dispatched, so compile-once assertions keep
-# their meaning: a sweep at a shape seen before adds nothing.  The
-# reference's lane sharding across devices is not ported: every dispatch
-# runs on the one device it is given.
+# their meaning: a sweep at a shape seen before adds nothing.  Under
+# lane sharding (``fastsim.lane_sharding``) each device runs its
+# contiguous block of lanes and records its own block shape.
 _SHAPES_SEEN: set = set()
 
 
@@ -154,6 +155,15 @@ def _result(p: StepParams, t: float) -> Dict:
             "mfu": flops / max(t, 1e-30) / p.peak_flops}
 
 
+def _run_block(prm_list: Sequence[StepParams], lanes: Sequence[int],
+               device: torch.device) -> torch.Tensor:
+    """Issue the step core over ``lanes`` on one device; the lane times
+    stay there (the caller copies them back)."""
+    _SHAPES_SEEN.add((len(lanes), str(device)))
+    with torch.no_grad():
+        return _step_core(_stack_step_params(prm_list, lanes, device))
+
+
 def sweep_step(params_list: Sequence[StepParams], *,
                device: DeviceLike = "cuda") -> List[Dict]:
     """Run a step-scenario sweep as one batch on ``device``.
@@ -161,7 +171,10 @@ def sweep_step(params_list: Sequence[StepParams], *,
     The batch is padded to a power of two so repeat sweeps of any size
     reuse the program cache; results come back in input order as dicts
     with ``time_s``/``step_s``/``mfu`` (model-level fields like
-    tokens/s are layered on by ``TransformerWorkload``).
+    tokens/s are layered on by ``TransformerWorkload``).  Under lane
+    sharding the padded lanes split over the local devices, one
+    contiguous block each, issued in turn from the host (see
+    ``fastsim``'s lane-sharding note: no faster than one device).
     """
     dev = resolve_device(device)
     prm_list = [_f64_step_params(p) for p in params_list]
@@ -170,10 +183,14 @@ def sweep_step(params_list: Sequence[StepParams], *,
     lanes = _pad_pow2(list(range(len(prm_list))))
     m = get_global_metrics()
     pre, t0 = trace_count(), time.perf_counter()
-    _SHAPES_SEEN.add((len(lanes), str(dev)))
-    with torch.no_grad():
-        out = _step_core(_stack_step_params(prm_list, lanes, dev)) \
-            .cpu().numpy()
+    shard = _shard_lanes(len(lanes), dev)
+    if shard is None:
+        out = _run_block(prm_list, lanes, dev).cpu().numpy()
+    else:
+        per = len(lanes) // len(shard)
+        blocks = [_run_block(prm_list, lanes[i:i + per], d)
+                  for i, d in zip(range(0, len(lanes), per), shard)]
+        out = np.concatenate([b.cpu().numpy() for b in blocks])
     if m.enabled:
         # same taxonomy as fastsim._record_dispatch, one shared "step"
         # bucket (the step core is shape-monomorphic)
@@ -189,6 +206,7 @@ def sweep_step(params_list: Sequence[StepParams], *,
         m.counter("stepsim.lanes_padded").inc(len(lanes) - len(prm_list))
         m.histogram("stepsim.sweep_occupancy", RATIO_BUCKETS).observe(
             len(prm_list) / len(lanes))
+        _record_shard(m, shard, prefix="stepsim")
     return [_result(p, float(t))
             for p, t in zip(prm_list, out[:len(prm_list)])]
 

@@ -195,10 +195,10 @@ class TransformerWorkload(Workload):
         return StepWorkload(layers=layers, tail_collectives=tail)
 
     def des_app(self, platform, *, trace: bool = False, faults=None,
-                regions=None, **kw):
+                regions=None, device: DeviceLike = "cuda", **kw):
         """The DES on the host; a transformer region replicates the
         steady-state layer delta on the host, with no closed form to
-        run, so it takes no device."""
+        run, so ``device`` is accepted and unused."""
         self.validate(platform)
         d = self._derive(platform)
 

@@ -12,9 +12,15 @@ check does not hang on the last bit of a host's float64 rounding).
 Covered: the transformer step times, the 18-scenario step sweep and the
 step-time gradient; the HPL and transformer fault sweeps on tpu-v5e-pod;
 the region run of Frontera's 16 x 16 DES; the per-scale contention fit;
-and the TOP500 fleet at the library's default tuning.
+the TOP500 fleet at the library's default tuning; and slice 7's serving
+wave (times, ``stats`` and ``request_key`` digests through the
+reference's ``PredictionService``), its acceptance campaign and its
+two-edition TOP500 study (each ``campaign_run`` record apart from its
+result floats as a sha256 digest, the floats one by one, the drift
+table; the digest is the script's own ``result_floats``).
 """
 import ast
+import importlib.util
 import os
 
 import pytest
@@ -83,11 +89,61 @@ OUT["REFERENCE_FLEET"] = {
                   e.calibrated_tflops] for e in rep.entries]}
 """
 
+SERVE_CHILD = r"""
+from repro.campaign import (CampaignSpec, campaign_report,
+                            edition_study_spec, run_campaign)
+from repro.faults import FaultSpec
+from repro.serve import PredictionService, WorkloadRequest
+from repro.top500 import FleetTuning
+
+C = PAYLOAD
+
+
+def mk(d):
+    f = d.get("faults")
+    return WorkloadRequest(
+        rid=d["rid"], workload=d.get("workload", "hpl"),
+        platform=d["platform"],
+        faults=None if f is None else FaultSpec.from_dict(f),
+        breakdown=d.get("breakdown", False))
+
+
+svc = PredictionService(cache=True)
+out = svc.predict_batch([mk(d) for d in C["SERVE_WAVE"]])
+stats = dict(svc.stats)
+svc.predict_batch([mk(d) for d in C["SERVE_WAVE"]])
+cached = dict(svc.stats)
+same = PredictionService(cache=True)
+same.predict_batch([mk(dict(C["SERVE_WAVE"][0], rid=i)) for i in range(8)])
+keys = {}
+for rid in C["SERVE_KEY_RIDS"]:
+    req = mk(C["SERVE_WAVE"][rid])
+    svc._resolve(req)
+    keys[str(rid)] = svc._cache_key(req)
+OUT["REFERENCE_SERVE"] = {
+    "time_s": [out[d["rid"]]["time_s"] for d in C["SERVE_WAVE"]],
+    "stats": stats, "cached_stats": cached,
+    "coalesced_stats": dict(same.stats), "keys": keys}
+res = run_campaign(CampaignSpec.make("accept", **C["CAMPAIGN_ACCEPT"]))
+OUT["campaign_runs"] = res.run_records
+OUT["campaign_dispatches"] = res.summary["meta"]["dispatches"]
+es = C["EDITION_STUDY"]
+res = run_campaign(edition_study_spec(es["editions"], limit=es["limit"]),
+                   tuning=FleetTuning(max_ranks=es["max_ranks"],
+                                      panels_cap=es["panels_cap"]))
+OUT["study_runs"] = res.run_records
+OUT["study_drift"] = campaign_report(res.records)["drift"]
+"""
+
 INPUTS = ("STEP_PLATFORMS", "STEP_GRID_LANES", "FAULT_SPECS", "DES_CFG",
           "REGION", "CONTENTION_FIT")
 CONSTANTS = ("REFERENCE_STEP_S", "REFERENCE_STEP_GRID_S",
              "REFERENCE_STEP_GRAD", "REFERENCE_FAULT_SWEEP",
              "REFERENCE_REGION", "REFERENCE_CONTENTION", "REFERENCE_FLEET")
+SERVE_INPUTS = ("SERVE_WAVE", "SERVE_KEY_RIDS", "CAMPAIGN_ACCEPT",
+                "EDITION_STUDY")
+SERVE_CONSTANTS = ("REFERENCE_SERVE", "REFERENCE_CAMPAIGN",
+                   "REFERENCE_EDITION_STUDY")
 
 
 def _literal(node):
@@ -97,23 +153,60 @@ def _literal(node):
     return ast.literal_eval(node)
 
 
-def _script_values() -> dict:
+def _script_values(names) -> dict:
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     out = {}
     for node in tree.body:
         if isinstance(node, ast.Assign) and len(node.targets) == 1 \
                 and isinstance(node.targets[0], ast.Name) \
-                and node.targets[0].id in INPUTS + CONSTANTS:
+                and node.targets[0].id in names:
             out[node.targets[0].id] = _literal(node.value)
     return out
 
 
+def _result_floats(records):
+    """``chip_smoke.result_floats``, loaded from the script's file (the
+    script only defines names when imported)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script.result_floats(records)
+
+
 @pytest.fixture(scope="module")
 def values():
-    script = _script_values()
+    script = _script_values(INPUTS + CONSTANTS)
     assert set(script) == set(INPUTS + CONSTANTS), set(script)
     ref = run_reference(CHILD, {k: script[k] for k in INPUTS}, timeout=900)
+    return script, ref
+
+
+@pytest.fixture(scope="module")
+def serve_values():
+    """Slice 7's constants, and the reference's answers in their form."""
+    script = _script_values(SERVE_INPUTS + SERVE_CONSTANTS)
+    assert set(script) == set(SERVE_INPUTS + SERVE_CONSTANTS), set(script)
+    out = run_reference(SERVE_CHILD, {k: script[k] for k in SERVE_INPUTS},
+                        timeout=900)
+    gates = ("fastsim_dispatches", "stepsim_dispatches", "serve_sweeps")
+    digest, floats = _result_floats(out["campaign_runs"])
+    ref = {"REFERENCE_SERVE": out["REFERENCE_SERVE"],
+           "REFERENCE_CAMPAIGN": {
+               "skeleton_sha256": digest, "floats": floats,
+               "dispatches": {k: out["campaign_dispatches"][k]
+                              for k in gates}}}
+    digest, floats = _result_floats(out["study_runs"])
+    drift = out["study_drift"]
+    ref["REFERENCE_EDITION_STUDY"] = {
+        "skeleton_sha256": digest, "floats": floats,
+        "machines": {d["machine"]: [d["predicted_drift"],
+                                    d["published_drift"]]
+                     for d in drift["machines"]},
+        "factors": {f["family"]: [f[f"factor_{drift['from']}"],
+                                  f[f"factor_{drift['to']}"]]
+                    for f in drift["calibration_factors"]}}
     return script, ref
 
 
@@ -138,6 +231,24 @@ def _same(got, want, path=""):
 def test_reference_constant_matches_the_reference(values, name):
     script, ref = values
     _same(script[name], ref[name], name)
+
+
+@pytest.mark.parametrize("name", SERVE_CONSTANTS)
+def test_slice7_constant_matches_the_reference(serve_values, name):
+    script, ref = serve_values
+    _same(script[name], ref[name], name)
+
+
+def test_serve_wave_covers_both_families_a_fault_and_a_breakdown(
+        serve_values):
+    script, _ = serve_values
+    wave = script["SERVE_WAVE"]
+    assert {d.get("workload", "hpl") for d in wave} == {"hpl",
+                                                       "transformer"}
+    assert any(d.get("faults") for d in wave)
+    assert any(d.get("breakdown") for d in wave)
+    assert script["REFERENCE_SERVE"]["stats"]["sweeps"] == 2
+    assert script["REFERENCE_SERVE"]["coalesced_stats"]["coalesced"] == 7
 
 
 def test_fleet_constant_covers_the_whole_sample(values):

@@ -20,13 +20,16 @@ from repro_torch.core.fastsim import (simulate_hpl_fast, simulate_time_traced,
 from repro_torch.convert import (fastsim_params_from_numpy,
                                  lm_params_from_reference)
 from repro_torch.models import build_model
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import (HPLPredictionService, PredictionService,
+                               ServeEngine, predict_top500, warm)
+from repro_torch.campaign import CampaignSpec, run_campaign
 from repro_torch.faults import FaultSpec, sweep_faults
 from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
                                    get_platform)
 from repro_torch.scale import (RegionHPLSim, contention_drift,
                                fit_contention_at_scale)
-from repro_torch.top500 import calibrate_against_des, predict_fleet
+from repro_torch.top500 import (calibrate_against_des, predict_fleet,
+                                sample_list_path)
 from repro_torch.workloads import (get_workload, simulate_step_fast,
                                    step_time_traced, sweep_step)
 
@@ -144,6 +147,12 @@ def _entry_points():
         "predict_fleet": lambda: predict_fleet([plat]),
         "calibrate_against_des": lambda: calibrate_against_des([plat],
                                                                steps=1),
+        "PredictionService": lambda: PredictionService(),
+        "HPLPredictionService": lambda: HPLPredictionService(),
+        "serve.warm": lambda: warm(["hpl"], ["bdw-local"]),
+        "serve.predict_top500": lambda: predict_top500(sample_list_path()),
+        "run_campaign": lambda: run_campaign(CampaignSpec.make(
+            "one", workloads=["hpl"], platforms=["bdw-local"])),
     }
 
 

@@ -8,6 +8,7 @@ its answer (plain JSON data) in ``OUT``.  Floats round-trip through
 JSON exactly.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -40,3 +41,24 @@ def run_reference(code: str, payload=None, timeout: int = 600) -> dict:
         cwd=ROOT, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def assert_close(got, want, rtol=1e-12, path="$"):
+    """``got == want`` apart from floats, which agree within ``rtol``
+    relative (NaN matches NaN)."""
+    if isinstance(want, float) and isinstance(got, float):
+        if got == want or (math.isnan(got) and math.isnan(want)):
+            return
+        assert abs(got - want) <= rtol * max(abs(got), abs(want)), \
+            (path, got, want)
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and sorted(got) == sorted(want), \
+            (path, sorted(got), sorted(want))
+        for k in want:
+            assert_close(got[k], want[k], rtol, f"{path}.{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_close(g, w, rtol, f"{path}[{i}]")
+    else:
+        assert got == want, (path, got, want)

@@ -101,6 +101,37 @@ after:
     prompt and 16 new tokens, 4 slots), which runs prefill and decode
     without the kernel, as the reference's engine does, and a float32
     check that prefill's last logits equal the kernel forward's.
+  * MoE serving and scoring: phi3.5-moe-42b-a6.6b at full width (d_model
+    4096, 32 query heads in 8 KV groups of 128, 16 experts of 6,400,
+    top-2, vocab 32,064, seeded weights) cut to 8 of its 32 layers, under
+    both ``moe_impl`` values: ``ServeEngine`` in bfloat16 (4 requests of
+    128 prompt and 16 new tokens, 4 slots; ``flash_attention_fwd`` once a
+    layer a prefill), then the same requests against the engine built
+    without the kernel in float32, and in bfloat16 with the kernel run
+    replaying the plain run's routing decisions (the router is discrete:
+    a bf16 rounding that flips a near-tied expert moves a token by O(1),
+    which is not what the kernel changes).  Then a 2 x 2048 prefill, 16
+    decode steps and ``Model.loss``, kernel against plain with the plain
+    run's routing replayed: in float32 over the logits, the K/V cache,
+    the decode steps and the loss; in bfloat16 over each layer's
+    attention output and output, each layer also fed the plain run's
+    input (bf16 rounds the stream of this MoE far more coarsely than a
+    layer's attention moves it, which the "stream rounding" line
+    measures without the kernel; with the inputs replayed the cache and
+    decode steps equal the plain run's by construction).  Every layer's
+    kernel attention output is held element by element against its
+    float64 function, and two planted faults (a middle layer's attention
+    zeroed, the causal mask off) must read above every limit the kernel
+    passes; the number of routing decisions that flip without replay is
+    printed.
+  * VLM serving and scoring: llava-next-mistral-7b at full width and
+    depth (32 layers, 32 query heads in 8 KV groups of 128, 2,880 image
+    tokens, seeded weights): ``ServeEngine`` (2 requests of 128 prompt and
+    16 new tokens behind a zero image prefix) against the plain engine in
+    bfloat16 and float32, and a teacher-forced prefill of 2,880 seeded
+    image embeddings and 128 tokens (3,008 positions, ragged at the hd-128
+    tile) with 4 decode steps and ``Model.loss``, compared, bounded and
+    faulted as for the MoE model.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -550,12 +581,27 @@ TEST_SHAPES = [(64, 128, 0.1), (256, 256, 0.03), (8, 128, 0.5),
                (1000, 300, 0.05)]
 LM_ARCH = "qwen2-0.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 8, 128, 32, 4
+SERVE_SPEC = (SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS)
 # (B, S, G, R, hd): tests/test_kernels.py's flash shapes, a ragged one, the
 # shape ServeEngine gives the kernel (one 128-token prompt at a time), and
 # qwen2-0.5b's 4 x 2048 prefill
 FLASH_SERVED = (1, SERVE_PROMPT, 2, 7, 64)
+MOE_ARCH, VLM_ARCH = "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b"
+# phi3.5-moe keeps 8 of its 32 layers: the whole model (~84 GB even in
+# bf16, ~170 GB of float32 weights) does not fit one 80 GB card
+MOE_LAYERS = 8
+# (requests, prompt, new tokens, slots) of the MoE and VLM serve phases
+MOE_SERVE = (4, 128, 16, 4)
+VLM_SERVE = (2, 128, 16, 2)
+MOE_B, MOE_S, MOE_DECODE = 2, 2048, 16
+VLM_PROMPT, VLM_DECODE = 128, 4
+# the flash shapes of their prefills: phi3.5-moe's 2 x 2048, and llava's
+# 2,880 image + 128 text positions (not a multiple of the 128-row tile)
+FLASH_MOE = (MOE_B, MOE_S, 8, 4, 128)
+FLASH_VLM = (1, 2880 + VLM_PROMPT, 8, 4, 128)
 FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
-                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64), FLASH_SERVED]
+                (1, 512, 4, 2, 128), (1, 200, 2, 7, 64), FLASH_SERVED,
+                FLASH_MOE, FLASH_VLM]
 FLASH_PREFILL = (4, 2048, 2, 7, 64)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # unit roundoff of bfloat16 (8 significand bits)
@@ -1504,7 +1550,7 @@ def check_flash(shape, causal, dtype, dev, seed):
 
 
 def planted_tile_faults(q, k, v, exact):
-    """A bf16 check at the causal prefill shape must reject a kernel that
+    """A bf16 check at a causal prefill shape must reject a kernel that
     loses one 64-key tile for the last 64 query positions: its diagonal
     tile, or the first tile.  Such outputs move by far less than the 2e-2
     absolute limit; the element bound must catch them."""
@@ -1534,11 +1580,12 @@ def sdpa_inputs(q, k, v):
             v.transpose(1, 2))
 
 
-def time_flash(shape, dev):
+def time_flash(shape, dev, label="the shape ServeEngine's prefill gives it"):
     """The bf16 kernel at ``shape`` causal, timed beside
     scaled_dot_product_attention (the library yardstick) in turns: kernel,
-    library, library, kernel."""
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    library, library, kernel; then the plain version."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
     q, k, v = flash_inputs(shape, torch.bfloat16, dev, 98)
     qs, ks, vs = sdpa_inputs(q, k, v)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1551,18 +1598,21 @@ def time_flash(shape, dev):
     ms = [cuda_ms(kernel)]
     library_ms = [cuda_ms(library), cuda_ms(library)]
     ms.append(cuda_ms(kernel))
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v))
     bound_ms, bound_by = flash_bound_ms(shape, True, torch.bfloat16)
-    print(f"flash_attention {shape} causal torch.bfloat16 (the shape "
-          f"ServeEngine's prefill gives it): ms={ms[0]:.6f},{ms[1]:.6f} "
+    print(f"flash_attention {shape} causal torch.bfloat16 ({label}): "
+          f"ms={ms[0]:.6f},{ms[1]:.6f} plain_ms={plain_ms:.6f} "
           f"library_ms(sdpa)={library_ms[0]:.6f},{library_ms[1]:.6f} "
           f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
 
 
 def flash_phase(dev):
-    """(a) the flash kernel against its plain version at the test shapes,
-    then timed at qwen2-0.5b's prefill shape beside the plain version and
-    scaled_dot_product_attention (the library yardstick, never on the
-    port's path)."""
+    """(a) the flash kernel against its plain version at the test shapes
+    and the MoE and VLM prefill shapes (with the planted tile faults at
+    the ragged VLM one), then timed at qwen2-0.5b's prefill shape beside
+    the plain version and scaled_dot_product_attention (the library
+    yardstick, never on the port's path), and at the served and the MoE
+    and VLM prefill shapes."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
     seed = 0
@@ -1570,8 +1620,16 @@ def flash_phase(dev):
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 seed += 1
-                check_flash(shape, causal, dtype, dev, seed)
+                (q, k, v), _, exact = check_flash(shape, causal, dtype, dev,
+                                                  seed)
+                if (shape, causal, dtype) == (FLASH_VLM, True,
+                                              torch.bfloat16):
+                    planted_tile_faults(q, k, v, exact)
+                del q, k, v, exact
     time_flash(FLASH_SERVED, dev)
+    time_flash(FLASH_MOE, dev, f"{MOE_ARCH}'s {MOE_B} x {MOE_S} prefill")
+    time_flash(FLASH_VLM, dev, f"{VLM_ARCH}'s 2,880 image + {VLM_PROMPT} "
+               "token prefill")
     rec = {}
     for dtype in (torch.bfloat16, torch.float32):
         (q, k, v), err, exact = check_flash(FLASH_PREFILL, True, dtype, dev,
@@ -1603,106 +1661,114 @@ def lm_params(cfg, dev):
         torch.Generator(device=dev).manual_seed(0))
 
 
-def serve_requests(cfg):
-    """The seeded requests of the serve phase (fresh objects each call)."""
+def serve_requests(cfg, n=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                   new=SERVE_NEW):
+    """The seeded requests of a serve phase (fresh objects each call)."""
     import numpy as np
 
     from repro_torch.serve import Request
     rng = np.random.default_rng(0)
     return [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32),
-        max_new_tokens=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+        0, cfg.vocab_size, prompt).astype(np.int32),
+        max_new_tokens=new) for i in range(n)]
 
 
-def compare_served(dev, cfg, params, out):
-    """The tokens ``out`` served with the kernel against the same requests
-    served by the engine built without it.  Each request's tokens must be
-    equal, or part where the plain path's two candidates are a near-tie:
-    their logits within ``PREFILL_LIMIT`` (the kernel-vs-plain gap allowed
-    for the dtype) of the logits' largest magnitude."""
+def serve_max_len(cfg, prompt, new):
+    """The engine's cache length: image prefix (vlm), prompt, new tokens."""
+    return cfg.n_image_tokens + prompt + new
+
+
+def plain_serve(dev, cfg, params, spec):
+    """The requests of ``spec`` (requests, prompt, new tokens, slots)
+    served by the engine built without the kernel (the reference engine's
+    build).  Returns its tokens and, per request, the logits over the real
+    vocabulary from which it chose each token, read off the engine's own
+    prefill and decode calls: per wave of ``slots`` requests, each
+    request's prefill, then one decode step over the wave per further
+    token.  Each call must be the one that schedule expects, told by the
+    tokens it was fed (a prefill the request's prompt, decode step t each
+    wave member's token t), or it raises ``SmokeFailure``."""
     from repro_torch.serve import ServeEngine
-    plain = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                        max_len=SERVE_PROMPT + SERVE_NEW, use_kernel=False,
-                        device=dev)
-    reqs = serve_requests(cfg)
+    n, prompt, new, slots = spec
+    plain = ServeEngine(cfg, params, batch_slots=slots,
+                        max_len=serve_max_len(cfg, prompt, new),
+                        use_kernel=False, device=dev)
+    model, rows = plain.model, []
+
+    def keep(fn, kind):
+        def call(*args, **kwargs):
+            cache, logits = fn(*args, **kwargs)
+            fed = args[1]["tokens"] if kind == "prefill" else args[2]
+            rows.append((kind, fed.reshape(-1).tolist(),
+                         logits[:, :cfg.vocab_size].float()))
+            return cache, logits
+        return call
+    model.prefill = keep(model.prefill, "prefill")
+    model.decode = keep(model.decode, "decode")
+    reqs = serve_requests(cfg, n, prompt, new)
     ref = plain.run(reqs)
+    logits, it = {}, iter(rows)
+
+    def take(kind, fed):
+        got = next(it, None)
+        check(got is not None and got[:2] == (kind, fed),
+              f"serve {cfg.name}: the plain engine's model calls do not "
+              f"follow its waves (expected a {kind} fed {fed[:8]}, got "
+              f"{None if got is None else (got[0], got[1][:8])})")
+        return got[2]
+    for w in range(0, n, slots):
+        wave = reqs[w:w + slots]
+        for r in wave:
+            logits[r.rid] = [take("prefill", r.prompt.tolist())[0]]
+        for t in range(new - 1):
+            row = take("decode", [ref[r.rid][t] for r in wave])
+            for i, r in enumerate(wave):
+                logits[r.rid].append(row[i])
+    check(next(it, None) is None, f"serve {cfg.name}: the plain engine made "
+                                  "more model calls than its waves")
+    return ref, logits
+
+
+def compare_served(dev, cfg, params, out, spec=None, plain=None, label=""):
+    """The tokens ``out`` served with the kernel against the same requests
+    served by the engine built without it (``plain_serve``, or its result
+    ``plain``).  Each request's tokens must be equal, or part where the
+    plain path's two candidates are a near-tie: their logits, in the plain
+    engine's own step, within ``PREFILL_LIMIT`` (the kernel-vs-plain gap
+    allowed for the dtype) of the logits' largest magnitude."""
+    spec = spec or SERVE_SPEC
+    ref, logits = plain or plain_serve(dev, cfg, params, spec)
     check(sorted(out) == sorted(ref) and all(
         len(out[r]) == len(ref[r]) for r in ref),
         f"serve {cfg.dtype}: token counts differ")
     limit = PREFILL_LIMIT[cfg.dtype]
     same = 0
-    for r in reqs:
-        t = next((t for t, (a, b) in enumerate(zip(out[r.rid], ref[r.rid]))
+    for rid in sorted(ref):
+        t = next((t for t, (a, b) in enumerate(zip(out[rid], ref[rid]))
                   if a != b), None)
         if t is None:
             same += 1
             continue
-        prefix = [int(x) for x in r.prompt] + ref[r.rid][:t]
-        with torch.inference_mode():
-            logits = plain.model.prefill(params, {"tokens": torch.tensor(
-                [prefix], device=dev)}, max_len=len(prefix))[1][0]
-        logits = logits[:cfg.vocab_size].float()
-        a, b = ref[r.rid][t], out[r.rid][t]
-        tie = float((logits[a] - logits[b]).abs() / logits.abs().max())
-        print(f"serve {cfg.name} {cfg.dtype}: request {r.rid} first differs "
-              f"at token {t} (plain {a}, kernel {b}); their logits differ "
-              f"by {tie:.3e} of scale (near-tie limit {limit})", flush=True)
+        lg = logits[rid][t]
+        a, b = ref[rid][t], out[rid][t]
+        tie = float((lg[a] - lg[b]).abs() / lg.abs().max())
+        print(f"serve {cfg.name}{label} {cfg.dtype}: request {rid} first "
+              f"differs at token {t} (plain {a}, kernel {b}); their logits "
+              f"differ by {tie:.3e} of scale (near-tie limit {limit})",
+              flush=True)
         check(tie <= limit, f"serve {cfg.dtype}: kernel and plain engines "
-                            f"differ at request {r.rid} token {t}, not a "
+                            f"differ at request {rid} token {t}, not a "
                             f"near-tie ({tie} > {limit})")
-    print(f"serve {cfg.name} {cfg.dtype}: kernel and plain engines served "
-          f"the same tokens for {same} of {len(reqs)} requests", flush=True)
-
-
-def serve_phase(dev, cfg, params):
-    """(b) the main path: ServeEngine on full-width qwen2-0.5b.  Launch
-    counts are 0 just before the run and read just after.  Then the same
-    requests through the engine without the kernel, in the config's bf16
-    and in float32."""
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                      max_len=SERVE_PROMPT + SERVE_NEW, device=dev)
-    eng.warm(SERVE_PROMPT)          # the first call's one-time set-up
-    reqs = serve_requests(cfg)
-    before = dict(eng.stats)
-    flash_attention_fwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = flash_attention_fwd.launches
-    stats = {k: eng.stats[k] - before[k] for k in eng.stats}
-    tokens = sum(len(t) for t in out.values())
-    print(f"serve {cfg.name}: {SERVE_REQUESTS} requests x prompt "
-          f"{SERVE_PROMPT} + {SERVE_NEW} new, {SERVE_SLOTS} slots: {tokens} "
-          f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s, stats "
-          f"{stats}, flash_attention_fwd launches={launches}", flush=True)
-    waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
-    check(stats == {"prefills": SERVE_REQUESTS,
-                    "decode_steps": waves * (SERVE_NEW - 1),
-                    "tokens_out": SERVE_REQUESTS * SERVE_NEW},
-          f"serve: stats {stats}")
-    check(all(len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size
-                                          for x in t) for t in out.values()),
-          "serve: a request's tokens are missing or outside the vocab")
-    check(launches == cfg.num_layers * stats["prefills"],
-          f"serve: flash_attention_fwd launched {launches} times, not "
-          f"{cfg.num_layers} x {stats['prefills']} prefills")
-    compare_served(dev, cfg, params, out)
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    out32 = ServeEngine(c32, params, batch_slots=SERVE_SLOTS,
-                        max_len=SERVE_PROMPT + SERVE_NEW,
-                        device=dev).run(serve_requests(c32))
-    compare_served(dev, c32, params, out32)
-    return launches
+    print(f"serve {cfg.name}{label} {cfg.dtype}: kernel and plain engines "
+          f"served the same tokens for {same} of {len(ref)} requests",
+          flush=True)
 
 
 @contextlib.contextmanager
-def planted(fault):
-    """A fault in the kernel path: layer 12's attention output zeroed, or
-    the causal mask off in every layer."""
+def planted(fault, layer=12):
+    """A fault in the kernel path: the attention output of ``layer`` (the
+    ``layer``-th flash call from 0) zeroed, or, for "no_causal_mask", the
+    causal mask off in every layer."""
     from repro_torch.kernels.flash_attention import ops
     real = ops.flash_attention
     calls = []
@@ -1712,7 +1778,7 @@ def planted(fault):
         if fault == "no_causal_mask":
             return real(q, k, v, causal=False)
         out = real(q, k, v, causal=causal)
-        return torch.zeros_like(out) if len(calls) == 13 else out
+        return torch.zeros_like(out) if len(calls) == layer + 1 else out
     ops.flash_attention = faulty
     try:
         yield
@@ -1790,6 +1856,453 @@ def prefill_phase(dev, cfg, params):
         for k, v in faults.items():
             check(v > limit, f"prefill {dtype}: planted fault {k} reads "
                              f"{v}, within the limit {limit}")
+
+
+class RoutingLog:
+    """The MoE routing decisions of a run (each ``repro_torch.models.moe.
+    route`` call's chosen experts, in call order).  ``record()`` keeps the
+    decisions of the run inside it; ``replay()`` makes the run inside it
+    take them instead, call by call: each call's shape must match, and
+    every recorded call must be used, or it raises ``SmokeFailure``.  The
+    gate weights stay the replaying run's own probabilities."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def _route(self, fn):
+        from repro_torch.models import moe
+        real = moe.route
+        moe.route = lambda probs, top_k: fn(real, probs, top_k)
+        try:
+            yield self
+        finally:
+            moe.route = real
+
+    def record(self):
+        self.calls = []
+
+        def recording(real, probs, top_k):
+            idx = real(probs, top_k)
+            self.calls.append(idx.clone())
+            return idx
+        return self._route(recording)
+
+    @contextlib.contextmanager
+    def replay(self):
+        it = iter(self.calls)
+        used = []
+
+        def replaying(real, probs, top_k):
+            idx = next(it, None)
+            check(idx is not None, f"routing replay: call {len(used)} has "
+                                   f"no decision ({len(self.calls)} "
+                                   "recorded)")
+            want = tuple(probs.shape[:-1]) + (top_k,)
+            check(tuple(idx.shape) == want,
+                  f"routing replay: call {len(used)} routes {want}, the "
+                  f"recorded decision is {tuple(idx.shape)}")
+            used.append(None)
+            return idx
+        with self._route(replaying):
+            yield self
+        check(len(used) == len(self.calls),
+              f"routing replay: {len(used)} calls of {len(self.calls)} "
+              "recorded")
+
+    def flips(self, other):
+        """(decisions that differ from ``other``'s, decisions): one per
+        token and routing call, in choice order; the runs must make the
+        same calls."""
+        check(len(self.calls) == len(other.calls)
+              and all(a.shape == b.shape
+                      for a, b in zip(self.calls, other.calls)),
+              "routing: the two runs made different routing calls")
+        n = sum(int((a != b).any(dim=-1).sum())
+                for a, b in zip(self.calls, other.calls))
+        return n, sum(a[..., 0].numel() for a in self.calls)
+
+
+class StreamLog:
+    """The dense stack's residual stream in a run: every
+    ``Model._dense_layer_fwd`` call's (one a layer, in prefill and in the
+    loss's forward) input, attention output and output, in call order.
+    ``record()`` keeps them; ``replay(log)`` also feeds each call the input
+    ``log`` recorded for it in place of its own: each shape must match
+    and every recorded input must be used, or it raises
+    ``SmokeFailure``."""
+
+    def __init__(self):
+        self.inputs, self.attention, self.outputs = [], [], []
+
+    @contextlib.contextmanager
+    def _hooked(self, source):
+        from repro_torch.models import layers, lm
+        fwd, attn = lm.Model._dense_layer_fwd, layers.apply_attention
+        self.inputs, self.attention, self.outputs = [], [], []
+        feed = iter(source.inputs) if source is not None else None
+
+        def layer(model, p_l, x, positions):
+            if feed is not None:
+                want = next(feed, None)
+                check(want is not None and want.shape == x.shape,
+                      f"stream replay: layer call {len(self.inputs)} takes "
+                      f"{tuple(x.shape)}, recorded "
+                      f"{None if want is None else tuple(want.shape)}")
+                x = want
+            self.inputs.append(x)
+            out = fwd(model, p_l, x, positions)
+            self.outputs.append(out[0])
+            return out
+
+        def attention(*args, **kwargs):
+            out = attn(*args, **kwargs)
+            self.attention.append(out[0])
+            return out
+        lm.Model._dense_layer_fwd, layers.apply_attention = layer, attention
+        try:
+            yield self
+        finally:
+            lm.Model._dense_layer_fwd, layers.apply_attention = fwd, attn
+        if feed is not None:
+            check(next(feed, None) is None,
+                  f"stream replay: {len(self.inputs)} layer calls of "
+                  f"{len(source.inputs)} recorded")
+
+    def record(self):
+        return self._hooked(None)
+
+    def replay(self, log):
+        return self._hooked(log)
+
+    def compared(self):
+        """Each layer call's attention output and output."""
+        return self.attention + self.outputs
+
+
+def f32_excess(out, q, k, v, mask):
+    """The float32 kernel's output against its function evaluated in
+    float64 on the same inputs, element by element: the largest
+    |out - exact| over its bound (at most 1: within).  The kernel rounds
+    q * scale once and sums each score in hd fused steps, so a score is off
+    by at most (hd + 1) u sum_i |q_i k_i| <= (hd + 1) u |q| max_j |k_j|,
+    and s - m by twice that more; expf is within 2 ulps (4 u).  A score
+    error e moves each softmax weight by at most 2e relative, so the
+    output by at most 2e (P @ |V|).  The sums of p v and of p over Sk keys,
+    rescaled once a 32-key tile, add (Sk + Sk / 32 + 2) u (P @ |V|) each,
+    and the division one rounding (u |out|); 1.05 leaves room for
+    second-order terms."""
+    hd, sk = q.shape[4], k.shape[1]
+    qs = q.double() * (1.0 / math.sqrt(hd))
+    kd = k.double()
+    p = torch.softmax(torch.einsum("bqgrk,bsgk->bgrqs", qs, kd)
+                      .masked_fill(~mask, -math.inf), dim=-1)
+    exact = torch.einsum("bgrqs,bsgk->bqgrk", p, v.double())
+    mag = torch.einsum("bgrqs,bsgk->bqgrk", p, v.double().abs())
+    del p
+    reach = qs.norm(dim=-1) * kd.norm(dim=-1).amax(dim=1)[:, None, :, None]
+    weight = 2 * ((hd + 3) * F32_U * reach + 4 * F32_U)
+    rel = weight + 2 * (sk + sk // 32 + 2) * F32_U
+    bound = 1.05 * (rel[..., None] * mag + F32_U * exact.abs()) + 1e-300
+    return float(((out.double() - exact).abs() / bound).max())
+
+
+@contextlib.contextmanager
+def layer_bounds(excess):
+    """Every flash call in the block (one a layer, through
+    ``ops.flash_attention``) is held element by element against its own
+    function in float64 on the same inputs and mask (``bf16_excess`` in
+    bfloat16, ``f32_excess`` in float32); appends each call's largest
+    |err| / bound.  Entered inside ``planted``, it sees the fault's
+    output."""
+    from repro_torch.kernels.flash_attention import ops
+    inner = ops.flash_attention
+
+    def checking(q, k, v, causal=True):
+        out = inner(q, k, v, causal=causal)
+        mask = visible_mask(q.shape[1], k.shape[1], causal, q.device)
+        if q.dtype == torch.bfloat16:
+            excess.append(bf16_excess(out, *bf16_exact(q, k, v, mask)))
+        else:
+            excess.append(f32_excess(out, q, k, v, mask))
+        return out
+    ops.flash_attention = checking
+    try:
+        yield
+    finally:
+        ops.flash_attention = inner
+
+
+def run_scored(cfg, params, dev, use_kernel, tokens, steps, image=None):
+    """``run_prefill`` for the MoE and VLM phases: the prefill of
+    ``tokens[:, :-steps]`` (behind ``image``, for the vlm family), then
+    ``steps`` decode steps, then ``Model.loss`` on the prefill's batch.
+    Returns the prefill wall seconds and every tensor to compare: the
+    logits over the real vocabulary, the K/V cache after prefill and after
+    the last step, and the loss (and, with MoE, its balance term)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg, use_kernel=use_kernel, device=dev)
+    batch = {"tokens": tokens[:, :-steps]}
+    if image is not None:
+        batch["image_embeds"] = image
+    n_img = cfg.n_image_tokens if image is not None else 0
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        (cache, logits), wall = timed(lambda: model.prefill(
+            params, batch, max_len=n_img + tokens.shape[1]))
+        outs = [logits[:, :v], cache["k"].clone(), cache["v"].clone()]
+        for i in range(steps):
+            n = tokens.shape[1] - steps + i
+            cache, logits = model.decode(params, cache, tokens[:, n:n + 1])
+            outs.append(logits[:, :v])
+        outs += [cache["k"], cache["v"]]
+        loss, met = model.loss(params, batch)
+        outs.append(loss)
+        if cfg.family == "moe":
+            outs.append(met["aux"])
+    check(all(bool(torch.isfinite(t.float()).all()) for t in outs),
+          f"{cfg.name} {cfg.dtype} use_kernel={use_kernel}: non-finite "
+          "output")
+    return wall, outs
+
+
+def scored_phase(dev, cfg, params, tokens, steps, image=None):
+    """Teacher-forced prefill, decode and ``Model.loss`` with the kernel
+    against the plain path, in float32 and bfloat16: the largest gap over
+    the compared outputs within ``PREFILL_LIMIT``, every layer's kernel
+    attention output within its element bound (limit 1), and two planted
+    faults (the middle layer's attention zeroed, the causal mask off)
+    each above both limits.  The compared outputs are the logits, the K/V
+    cache, the decode steps and the loss (with MoE, its balance term).
+
+    With MoE every kernel run replays the plain run's routing decisions
+    (``RoutingLog``): the router is discrete, and how many decisions
+    differ when the kernel run routes on its own is printed with no limit
+    beside it.  In bfloat16 each layer is also fed the plain run's input
+    to it (``StreamLog``), and the compared outputs are each layer's
+    attention output and output, and nothing else: with every layer's
+    input replayed the K/V cache and the decode steps (which run no
+    flash) equal the plain run's by construction, and the logits and the
+    loss follow from the last layer's output.  An MoE layer's output
+    dwarfs its attention's (the expert weights' fan-in is the expert
+    count, as in the reference's init), so bf16 rounds the stream far
+    more coarsely than a layer's attention moves it, and the rounding
+    compounds through the stack: the line "stream rounding" prints how
+    far the plain path with the kernel's plain version in place of the
+    kernel lands from the plain path over the whole model, routing
+    replayed (no kernel involved)."""
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    moe = cfg.family == "moe"
+    mid = cfg.num_layers // 2
+    faults = (f"layer_{mid}_attention_zeroed", "no_causal_mask")
+    name = f"{cfg.name}" + (f" {cfg.moe_impl}" if moe else "")
+    whole = "logits, K/V cache, decode steps and the loss"
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        limit = PREFILL_LIMIT[dtype]
+        by_layer = moe and dtype == "bfloat16"
+        routes, stream = RoutingLog(), StreamLog()
+
+        def run(*contexts):
+            """(prefill wall, compared outputs) of a kernel run inside
+            ``contexts``, replaying the plain run's routing (MoE) and
+            layer inputs (bf16 MoE)."""
+            own = StreamLog()
+            with contextlib.ExitStack() as stack:
+                for cm in contexts:
+                    stack.enter_context(cm)
+                if moe:
+                    stack.enter_context(routes.replay())
+                if by_layer:
+                    stack.enter_context(own.replay(stream))
+                wall, outs = run_scored(c, params, dev, True, tokens, steps,
+                                        image)
+            return wall, own.compared() if by_layer else outs
+        run_scored(c, params, dev, True, tokens, steps, image)  # warm
+        with contextlib.ExitStack() as stack:
+            if moe:
+                stack.enter_context(routes.record())
+            if by_layer:
+                stack.enter_context(stream.record())
+            plain_wall, base = run_scored(c, params, dev, False, tokens,
+                                          steps, image)
+        ref = stream.compared() if by_layer else base
+        free = RoutingLog()
+        with free.record():
+            kern_wall = run_scored(c, params, dev, True, tokens, steps,
+                                   image)[0]
+        kern_wall2 = run()[0]
+        reads = {}
+        for fault in (None,) + faults:
+            excess = []
+            outs = run(*([planted(fault, mid)] if fault else []),
+                       layer_bounds(excess))[1]
+            check(len(excess) == 2 * c.num_layers,
+                  f"{name} {dtype}: {len(excess)} flash calls checked, not "
+                  f"{c.num_layers} in prefill and {c.num_layers} in loss")
+            reads[fault or "kernel"] = (gap(outs, ref), max(excess))
+            del outs
+        what, routing = whole, ""
+        if moe:
+            n, total = free.flips(routes)
+            what += ", the plain run's routing replayed"
+            routing = (f"; {n} of {total} (token, layer) routing decisions "
+                       "differ when the kernel run routes on its own")
+        if by_layer:
+            what = (f"each layer's attention output and output ({len(ref)}"
+                    " tensors, prefill and the loss's forward), each layer "
+                    "fed the plain run's input and routing (the K/V cache "
+                    "and decode steps then equal the plain run's by "
+                    "construction, and the logits and loss follow from the "
+                    "last layer)")
+            real = ops.flash_attention
+            ops.flash_attention = (lambda q, k, v, causal=True:
+                                   attention_ref(q, k, v, causal=causal))
+            try:
+                with routes.replay():
+                    floor = gap(run_scored(c, params, dev, True, tokens,
+                                           steps, image)[1], base)
+            finally:
+                ops.flash_attention = real
+            print(f"{name} {dtype} stream rounding, no kernel: the plain "
+                  f"path with attention_ref in place of the kernel, routing "
+                  f"replayed and the stream free, reads {floor:.3e} from the "
+                  f"plain path over {whole}", flush=True)
+        g, ex = reads.pop("kernel")
+        print(f"{name} {dtype} {tuple(tokens.shape)} teacher-forced: "
+              f"wall_s prefill kernel={kern_wall:.4f},{kern_wall2:.4f} "
+              f"plain={plain_wall:.4f}; kernel vs plain gap={g:.3e} "
+              f"(limit {limit}) over {what}; {2 * c.num_layers} kernel "
+              f"attention outputs, largest element |err| / bound {ex:.4f} "
+              f"(limit 1){routing}", flush=True)
+        print(f"{name} {dtype} planted faults against the limits the kernel "
+              f"passes (gap {limit}, element bound 1): " + "; ".join(
+                  f"{k} gap={v[0]:.3e} bound={v[1]:.4f}"
+                  for k, v in reads.items()), flush=True)
+        check(g <= limit, f"{name} {dtype}: kernel vs plain gap {g} > "
+                          f"{limit}")
+        check(ex <= 1.0, f"{name} {dtype}: a layer's kernel attention "
+                         f"output is {ex} x its element bound")
+        for k, (fg, fex) in reads.items():
+            check(fg > limit and fex > 1.0,
+                  f"{name} {dtype}: planted fault {k} reads gap {fg} and "
+                  f"element bound {fex}, not above {limit} and 1")
+
+
+def serve_phase(dev, cfg, params, spec=None):
+    """(b) the main path of a dense-stack model (qwen2-0.5b at full width;
+    phi3.5-moe, llava-next): ``ServeEngine`` with the kernel in the
+    config's bf16 on ``spec`` (requests, prompt, new tokens, slots), every
+    port kernel's count 0 just before the run and read just after (flash
+    once a layer a prefill, the others 0).  Then the same requests
+    against the engine built without the kernel in float32 and in
+    bfloat16, with MoE routing replayed from the plain run.  Returns the
+    run's flash launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.serve import ServeEngine
+    spec = spec or SERVE_SPEC
+    n, prompt, new, slots = spec
+    max_len = serve_max_len(cfg, prompt, new)
+    name = f"{cfg.name}" + (f" {cfg.moe_impl}" if cfg.moe else "")
+    eng = ServeEngine(cfg, params, batch_slots=slots, max_len=max_len,
+                      device=dev)
+    eng.warm(prompt)
+    reqs = serve_requests(cfg, n, prompt, new)
+    before = dict(eng.stats)
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    out, wall = timed(lambda: eng.run(reqs))
+    launches = {k.__name__: k.launches for k in counted}
+    stats = {k: eng.stats[k] - before[k] for k in eng.stats}
+    tokens = sum(len(t) for t in out.values())
+    print(f"serve {name}: {n} requests x prompt {prompt} + {new} new, "
+          f"{slots} slots: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s, stats {stats}, launches "
+          f"{launches}", flush=True)
+    waves = -(-n // slots)
+    check(stats == {"prefills": n, "decode_steps": waves * (new - 1),
+                    "tokens_out": n * new}, f"serve {name}: stats {stats}")
+    check(all(len(t) == new and all(0 <= x < cfg.vocab_size for x in t)
+              for t in out.values()),
+          f"serve {name}: a request's tokens are missing or outside the "
+          "vocab")
+    check(launches == {"masked_min_rows": 0, "ssd_scan": 0,
+                       "flash_attention_fwd": cfg.num_layers * n},
+          f"serve {name}: launches {launches}, not flash "
+          f"{cfg.num_layers} x {n} prefills and no other kernel")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    out32 = ServeEngine(c32, params, batch_slots=slots, max_len=max_len,
+                        device=dev).run(serve_requests(c32, n, prompt, new))
+    compare_served(dev, c32, params, out32, spec)
+    if cfg.moe is None:
+        compare_served(dev, cfg, params, out, spec)
+        return launches["flash_attention_fwd"]
+    log = RoutingLog()
+    with log.record():
+        plain = plain_serve(dev, cfg, params, spec)
+    with log.replay():
+        out_r = ServeEngine(cfg, params, batch_slots=slots, max_len=max_len,
+                            device=dev).run(serve_requests(cfg, n, prompt,
+                                                           new))
+    compare_served(dev, cfg, params, out_r, spec, plain,
+                   label=f" {cfg.moe_impl} (routing replayed)")
+    return launches["flash_attention_fwd"]
+
+
+def param_count(tree):
+    return sum(param_count(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+def moe_phase(dev):
+    """(g) phi3.5-moe-42b-a6.6b at full width, ``MOE_LAYERS`` of its 32
+    layers, seeded weights, under each ``moe_impl``: serving, then the
+    teacher-forced comparison on ``MOE_B`` x ``MOE_S`` tokens and
+    ``MOE_DECODE`` decode steps.  Returns each serve run's flash
+    launches, by path."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    params = lm_params(cfg, dev)
+    print(f"{MOE_ARCH} cut to {MOE_LAYERS} of "
+          f"{get_config(MOE_ARCH).num_layers} layers: "
+          f"{param_count(params)} parameters", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_B, MOE_S + MOE_DECODE),
+                           generator=gen, device=dev)
+    launches = {}
+    for impl in ("einsum", "scatter"):
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        t0 = time.perf_counter()
+        launches[f"{MOE_ARCH} {impl} serve"] = serve_phase(dev, c, params,
+                                                            MOE_SERVE)
+        scored_phase(dev, c, params, tokens, MOE_DECODE)
+        print(f"{MOE_ARCH} {impl}: host wall {time.perf_counter() - t0:.3f} "
+              "s", flush=True)
+    return launches
+
+
+def vlm_phase(dev):
+    """(h) llava-next-mistral-7b at full width and depth, seeded weights:
+    serving behind the zero image prefix, then the teacher-forced
+    comparison on 2,880 seeded image embeddings (x 0.1, as the reference's
+    smoke tests draw them) and ``VLM_PROMPT`` tokens with ``VLM_DECODE``
+    decode steps.  Returns the serve run's flash launches, by path."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    params = lm_params(cfg, dev)
+    print(f"{VLM_ARCH}: {param_count(params)} parameters", flush=True)
+    launches = {f"{VLM_ARCH} serve": serve_phase(dev, cfg, params,
+                                                 VLM_SERVE)}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, VLM_PROMPT + VLM_DECODE),
+                           generator=gen, device=dev)
+    image = torch.randn(1, cfg.n_image_tokens, cfg.d_model, generator=gen,
+                        device=dev) * 0.1
+    scored_phase(dev, cfg, params, tokens, VLM_DECODE, image)
+    return launches
 
 
 def ssd_inputs(shape, dtype, dev, seed, shared=False):
@@ -2453,6 +2966,7 @@ def main() -> int:
     cfg = get_config(LM_ARCH)
     params = lm_params(cfg, dev)
     flash_launches = serve_phase(dev, cfg, params)
+    flash_paths = {f"{LM_ARCH} serve": flash_launches}
     prefill_phase(dev, cfg, params)
     del params
 
@@ -2462,6 +2976,20 @@ def main() -> int:
     sparams = lm_params(scfg, dev)
     ssd_launches = ssm_loss_phase(dev, scfg, sparams)
     ssm_serve_phase(dev, scfg, sparams)
+    del sparams
+
+    # ---- the moe and vlm families: phi3.5-moe (8 of 32 layers) and
+    # llava-next-mistral-7b, flash attention in each prefill at hd 128
+    for phase in (moe_phase, vlm_phase):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        flash_paths.update(phase(dev))
+        torch.cuda.synchronize()
+        print(f"{phase.__name__}: host wall {time.perf_counter() - t0:.3f} "
+              f"s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
 
     kernels = [{
         "name": "masked_min_rows", "route": "cuda",
@@ -2474,7 +3002,8 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
-        "launches": flash_launches, **flash_rec}, {
+        "launches": flash_launches, "launches_by_path": flash_paths,
+        **flash_rec}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:67",

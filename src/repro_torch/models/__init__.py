@@ -1,4 +1,5 @@
-"""Language models (the dense and ssm families so far): port of
+"""Language models (the dense, moe, vlm and ssm
+families so far): port of
 ``repro.models``."""
 from .lm import Model, build_model, param_layout
 

@@ -1,9 +1,10 @@
-"""Model assembly for the dense and ssm families.
+"""Model assembly for the dense, moe, vlm and ssm families.
 
-Port of ``repro.models.lm.Model`` for ``family`` "dense" (qwen2-style) and
-"ssm" (Mamba-2); the other families raise ``NotImplementedError`` naming
-the slice that ports them.  Same methods as the reference, on nested
-dicts of tensors::
+Port of ``repro.models.lm.Model`` for ``family`` "dense" (qwen2-style),
+"moe" (the dense layer with a Mixture-of-Experts MLP), "vlm" (the dense
+stack with image embeddings prepended) and "ssm" (Mamba-2); the other
+families raise ``NotImplementedError`` naming the slice that ports them.
+Same methods as the reference, on nested dicts of tensors::
 
   init(generator) -> params                 forward(params, batch) -> (logits, aux)
   loss(params, batch) -> (loss, metrics)
@@ -30,21 +31,21 @@ from repro_torch._device import DeviceLike, resolve_device
 
 from . import layers as L
 from . import mamba2 as M
+from . import moe as MOE
 
 Params = Dict[str, Any]
 
 # the slice of the port that brings each family not yet ported
-_UNPORTED = {"moe": "slice 8c", "hybrid": "slice 8c", "encdec": "slice 8c",
-             "vlm": "slice 8c"}
+_UNPORTED = {"hybrid": "slice 8c-ii", "encdec": "slice 8c-ii"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is "
-            f"not ported yet ({_UNPORTED[cfg.family]}); 'dense' and 'ssm' "
-            "are")
-    if cfg.family not in ("dense", "ssm"):
+            f"not ported yet ({_UNPORTED[cfg.family]}); 'dense', 'moe', "
+            "'vlm' and 'ssm' are")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
         raise ValueError(cfg.family)
 
 
@@ -55,15 +56,20 @@ def _stacked(layout, n: int):
 
 
 def layer_layout(cfg) -> L.Layout:
-    """One layer's parameters: the reference's ``_init_layer`` (dense) or
+    """One layer's parameters: the reference's ``_init_layer`` (dense, moe,
+    vlm: "moe" in place of "mlp" for the moe family) or
     ``_init_ssm_layer`` (ssm) tree."""
     if cfg.family == "ssm":
         return {"ln": L.layout_norm(cfg.d_model, cfg.norm),
                 "ssm": M.layout_ssm(cfg)}
-    return {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
-            "attn": L.layout_attention(cfg),
-            "ln2": L.layout_norm(cfg.d_model, cfg.norm),
-            "mlp": L.layout_mlp(cfg)}
+    p = {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
+         "attn": L.layout_attention(cfg),
+         "ln2": L.layout_norm(cfg.d_model, cfg.norm)}
+    if cfg.moe is not None and cfg.family == "moe":
+        p["moe"] = MOE.layout_moe(cfg)
+    else:
+        p["mlp"] = L.layout_mlp(cfg)
+    return p
 
 
 def param_layout(cfg) -> L.Layout:
@@ -83,8 +89,8 @@ def _layer(stacked: Params, i: int) -> Params:
 
 class Model(nn.Module):
     """A decoder-only LM on ``device`` (default ``"cuda"``, which raises
-    without a card).  ``use_kernel`` sends the dense family's
-    full-sequence attention (``forward``, ``loss``, ``prefill``) through
+    without a card).  ``use_kernel`` sends the dense stack's (dense, moe,
+    vlm) full-sequence attention (``forward``, ``loss``, ``prefill``) through
     the flash-attention kernel, and the ssm family's full-sequence scan
     (``forward``, ``loss``; not ``prefill``, which needs the final state,
     as in the reference) through the SSD chunk-scan kernel."""
@@ -119,26 +125,50 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ forward
     def _embed_inputs(self, params: Params, batch):
-        """Returns (x, positions, loss_mask, labels)."""
+        """Returns (x, positions, loss_mask, labels).  For the vlm family
+        ``batch["image_embeds"]`` (B, N_img, D) is prepended to the token
+        embeddings; its positions carry label 0 and no loss, and the mask
+        is (1, S), as the reference's."""
         cfg = self.cfg
+        dev = self.device
         tokens = torch.as_tensor(batch["tokens"], dtype=torch.long,
-                                 device=self.device)
-        b, s = tokens.shape
+                                 device=dev)
+        b = tokens.shape[0]
         x = L.apply_embed(params["embed"], tokens, cfg)
-        labels = torch.roll(tokens, -1, dims=1)
-        mask = (torch.arange(s, device=self.device) < s - 1).float()
-        mask = mask[None, :].expand(b, s)
-        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        if cfg.family == "vlm":
+            img = torch.as_tensor(batch["image_embeds"], device=dev).to(
+                self.dtype)                                   # (B, Nimg, D)
+            x = torch.cat([img, x], dim=1)
+            n_img, s = img.shape[1], x.shape[1]
+            labels = torch.cat([tokens.new_zeros((b, n_img)), tokens], dim=1)
+            pos = torch.arange(s, device=dev)
+            mask = ((pos >= n_img) & (pos < s - 1)).float()[None, :]
+            labels = torch.roll(labels, -1, dims=1)
+        else:
+            s = tokens.shape[1]
+            labels = torch.roll(tokens, -1, dims=1)
+            mask = (torch.arange(s, device=dev) < s - 1).float()
+            mask = mask[None, :].expand(b, s)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
         return x, positions, mask, labels
 
+    def _ffn(self, p_l: Params, h: torch.Tensor):
+        """The layer's MLP or MoE: (out, balance loss; 0 for an MLP)."""
+        if "moe" in p_l:
+            return MOE.apply_moe(p_l["moe"], h, self.cfg)
+        return (L.apply_mlp(p_l["mlp"], h, self.cfg),
+                torch.zeros((), dtype=torch.float32, device=self.device))
+
     def _dense_layer_fwd(self, p_l: Params, x: torch.Tensor, positions):
+        """Returns (x, (k, v), balance loss)."""
         cfg = self.cfg
         h = L.apply_norm(p_l["ln1"], x, cfg.norm)
         a, kv = L.apply_attention(p_l["attn"], h, cfg, positions,
                                   use_kernel=self.use_kernel)
         x = x + a
         h = L.apply_norm(p_l["ln2"], x, cfg.norm)
-        return x + L.apply_mlp(p_l["mlp"], h, cfg), kv
+        m, aux = self._ffn(p_l, h)
+        return x + m, kv, aux
 
     def _ssm_layer_fwd(self, p_l: Params, x: torch.Tensor):
         h = L.apply_norm(p_l["ln"], x, self.cfg.norm)
@@ -147,17 +177,18 @@ class Model(nn.Module):
 
     def forward(self, params: Params, batch):
         """Teacher-forcing forward.  Returns (logits, (aux, mask, labels));
-        aux is 0 (it is the MoE balance loss)."""
+        aux is the MoE balance loss summed over layers (0 without MoE)."""
         cfg = self.cfg
         x, positions, mask, labels = self._embed_inputs(params, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for p_l in self._layers(params):
             if cfg.family == "ssm":
                 x = self._ssm_layer_fwd(p_l, x)
             else:
-                x, _ = self._dense_layer_fwd(p_l, x, positions)
+                x, _, a = self._dense_layer_fwd(p_l, x, positions)
+                aux = aux + a
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return logits, (aux, mask, labels)
 
     @torch.no_grad()
@@ -179,8 +210,8 @@ class Model(nn.Module):
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int) -> Params:
-        """The dense family's K/V cache (L, B, max_len, G, hd) in the
-        compute dtype, or the ssm family's {"conv": (L, B, K-1, C),
+        """The dense stack's (dense, moe, vlm) K/V cache (L, B, max_len, G,
+        hd) in the compute dtype, or the ssm family's {"conv": (L, B, K-1, C),
         "state": (L, B, H, P, N)} in float32 (``max_len`` unused)."""
         cfg = self.cfg
         if cfg.family == "ssm":
@@ -213,7 +244,7 @@ class Model(nn.Module):
                 for k, v in st.items():
                     cache["ssm"][k][i] = v
                 continue
-            x, (k, v) = self._dense_layer_fwd(p_l, x, positions)
+            x, (k, v), _ = self._dense_layer_fwd(p_l, x, positions)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         cache["len"] = s
@@ -244,7 +275,7 @@ class Model(nn.Module):
                                             cache["k"][i], cache["v"][i], pos)
             x = x + a
             h = L.apply_norm(p_l["ln2"], x, cfg.norm)
-            x = x + L.apply_mlp(p_l["mlp"], h, cfg)
+            x = x + self._ffn(p_l, h)[0]
         cache["len"] = pos + 1
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x, cfg)

@@ -12,7 +12,11 @@ One difference from the reference: ``ServeEngine`` takes ``use_kernel``
 (default True) and builds its model with it, so a dense model's prefill
 runs the flash-attention CUDA kernel on the card.  The reference engine
 builds with the default ``use_kernel=False``; the computation is the same
-either way (the kernel computes the plain attention it replaces).  For
+either way (the kernel computes the plain attention it replaces).  The
+moe and vlm families run the same dense stack, so their prefill launches
+the kernel once per layer too; a vlm request is prefilled behind
+``n_image_tokens`` zero image embeddings, so ``max_len`` must cover the
+image prefix, the prompt and the new tokens.  For
 the ssm family (Mamba-2) ``use_kernel`` changes nothing here: it reaches
 only ``forward`` and ``loss``, while prefill runs the chunked scan (it
 needs the final state) and decode the one-step recurrence, so serving
@@ -78,7 +82,14 @@ class ServeEngine:
         self.stats["prefills"] += 1
         tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
                                  device=self.device)[None, :]
-        cache, logits = self.model.prefill(self.params, {"tokens": tokens},
+        batch = {"tokens": tokens}
+        if self.cfg.family == "vlm":
+            # no image frontend: a zero image prefix, as the reference's
+            # engine serves it (``max_len`` must cover it)
+            batch["image_embeds"] = torch.zeros(
+                (1, self.cfg.n_image_tokens, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        cache, logits = self.model.prefill(self.params, batch,
                                            max_len=self.max_len)
         first = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
         return cache, first

@@ -17,7 +17,10 @@ wave (times, ``stats`` and ``request_key`` digests through the
 reference's ``PredictionService``), its acceptance campaign and its
 two-edition TOP500 study (each ``campaign_run`` record apart from its
 result floats as a sha256 digest, the floats one by one, the drift
-table; the digest is the script's own ``result_floats``).
+table; the digest is the script's own ``result_floats``).  The MoE and
+VLM phases' configurations and flash shapes are held to the reference's
+configs in this process (``repro.configs`` imports without jax's x64
+alias).
 """
 import ast
 import importlib.util
@@ -266,3 +269,52 @@ def test_fault_specs_cover_every_closed_form_kind(values):
     assert {"straggler", "link_degrade", "link_flap",
             "latency_jitter"} <= set().union(*kinds)
     assert any(len(k) > 1 for k in kinds)            # a combined spec
+
+
+def _script():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+@pytest.mark.parametrize("which", ["moe", "vlm"])
+def test_moe_and_vlm_flash_shapes_are_the_reference_configs(which):
+    """Each phase's flash shape (B, S, G, R, hd) is its model's prefill
+    under the reference's config: phi3.5-moe's B x S tokens, llava's
+    image tokens plus the prompt; hd is one the kernel builds."""
+    from repro.configs import get_config as jget
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    script = _script()
+    arch = {"moe": script.MOE_ARCH, "vlm": script.VLM_ARCH}[which]
+    cfg = jget(arch)
+    assert cfg.family == which
+    heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    if which == "moe":
+        want = (script.MOE_B, script.MOE_S) + heads
+        assert script.FLASH_MOE == want
+    else:
+        want = (1, cfg.n_image_tokens + script.VLM_PROMPT) + heads
+        assert script.FLASH_VLM == want
+        assert want[1] % 128 != 0         # ragged at the hd-128 tile
+    assert cfg.resolved_head_dim in HEAD_DIMS
+    assert want in script.FLASH_SHAPES
+
+
+def test_moe_depth_cut_is_what_one_card_holds():
+    """phi3.5-moe whole does not fit one 80 GB card even in bf16; the cut
+    to ``MOE_LAYERS`` layers does in float32 weights (the seeded
+    parameters' dtype), with room for the comparison beside them."""
+    import dataclasses
+    from repro.configs import get_config as jget
+    script = _script()
+    cfg = jget(script.MOE_ARCH)
+    assert 0 < script.MOE_LAYERS < cfg.num_layers
+    assert cfg.n_params() * 2 > 80e9
+    cut = dataclasses.replace(cfg, num_layers=script.MOE_LAYERS)
+    assert cut.n_params() * 4 < 0.6 * 80e9
+    for spec in (script.MOE_SERVE, script.VLM_SERVE):
+        n, prompt, new, slots = spec
+        assert n % slots == 0 and prompt == 128 and new == 16

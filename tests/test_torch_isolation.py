@@ -103,6 +103,8 @@ def _entry_points():
     model = get_workload("hpl").fastsim_model(plat)
     lm = reduced(get_config("qwen2-0.5b"))
     ssm = reduced(get_config("mamba2-780m"))
+    moe = reduced(get_config("phi3.5-moe-42b-a6.6b"))
+    vlm = reduced(get_config("llava-next-mistral-7b"))
     step = get_workload("transformer").fastsim_model(
         get_platform("tpu-v5e-pod")).params
     region_cfg = HPLConfig(N=2048, nb=128, P=2, Q=2, lookahead=0)
@@ -123,6 +125,14 @@ def _entry_points():
         "ServeEngine_ssm": lambda: ServeEngine(ssm, {}),
         "lm_params_from_reference_ssm": lambda: lm_params_from_reference(
             _lm_tree(ssm), ssm),
+        "build_model_moe": lambda: build_model(moe),
+        "ServeEngine_moe": lambda: ServeEngine(moe, {}),
+        "lm_params_from_reference_moe": lambda: lm_params_from_reference(
+            _lm_tree(moe), moe),
+        "build_model_vlm": lambda: build_model(vlm),
+        "ServeEngine_vlm": lambda: ServeEngine(vlm, {}),
+        "lm_params_from_reference_vlm": lambda: lm_params_from_reference(
+            _lm_tree(vlm), vlm),
         "fit_fastsim_params": lambda: fit_fastsim_params(
             [(cfg, 0.05)], prm, fields=("gemm_eff",), steps=1),
         "whatif_grid": lambda: whatif_grid(get_workload("hpl"), plat,
@@ -166,13 +176,20 @@ def _lm_tree(cfg):
     return zeros(param_layout(cfg))
 
 
+LM_ARCHS = {"": "qwen2-0.5b", "_ssm": "mamba2-780m",
+            "_moe": "phi3.5-moe-42b-a6.6b", "_vlm": "llava-next-mistral-7b"}
+
+
 @pytest.mark.parametrize("name", [
     "build_model", "ServeEngine", "lm_params_from_reference",
-    "build_model_ssm", "ServeEngine_ssm", "lm_params_from_reference_ssm"])
+    "build_model_ssm", "ServeEngine_ssm", "lm_params_from_reference_ssm",
+    "build_model_moe", "ServeEngine_moe", "lm_params_from_reference_moe",
+    "build_model_vlm", "ServeEngine_vlm", "lm_params_from_reference_vlm"])
 def test_lm_entry_points_run_on_the_cpu_when_asked(name):
-    base = name.removesuffix("_ssm")
-    lm = reduced(get_config("mamba2-780m" if name.endswith("_ssm")
-                            else "qwen2-0.5b"))
+    suffix = next(s for s in ("_ssm", "_moe", "_vlm", "")
+                  if name.endswith(s))
+    base = name.removesuffix(suffix)
+    lm = reduced(get_config(LM_ARCHS[suffix]))
     call = {"build_model": lambda: build_model(lm, device="cpu"),
             "ServeEngine": lambda: ServeEngine(lm, {}, device="cpu"),
             "lm_params_from_reference": lambda: lm_params_from_reference(
@@ -188,10 +205,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, name):
 
 
 def test_unported_paths_name_their_slice():
-    """What is still unported names the slice that owns it (the MoE
-    models, slice 8c); the paths ported since run: the DES (slice 4),
-    representative regions (``regions=``, slice 6) and fault scenarios
-    on the fast model (slice 5)."""
+    """What is still unported names the slice that owns it (the hybrid
+    and encdec models, slice 8c-ii); the paths ported since run: the DES
+    (slice 4), representative regions (``regions=``, slice 6) and fault
+    scenarios on the fast model (slice 5)."""
     plat = get_platform("bdw-local")
     wl = get_workload("hpl")
     app = wl.des_app(plat)
@@ -207,8 +224,8 @@ def test_unported_paths_name_their_slice():
     assert out["events"] < 10597
     model = wl.fastsim_model(plat, faults={"faults": []})
     assert model.params == plat.fastsim()
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        build_model(get_config("qwen3-moe-235b-a22b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 8c-ii"):
+        build_model(get_config("zamba2-2.7b"), device="cpu")
     assert wl.des_ranks(plat) == HPLConfig(4096, 128, 4, 4).n_ranks
 
 

@@ -200,9 +200,7 @@ def test_plain_serve_engine_matches_reference(ref_params, ref_serve):
 
 
 @pytest.mark.parametrize("name,slice_", [
-    ("phi3.5-moe-42b-a6.6b", "slice 8c"), ("qwen3-moe-235b-a22b", "slice 8c"),
-    ("zamba2-2.7b", "slice 8c"), ("whisper-medium", "slice 8c"),
-    ("llava-next-mistral-7b", "slice 8c")])
+    ("zamba2-2.7b", "slice 8c-ii"), ("whisper-medium", "slice 8c-ii")])
 def test_unported_families_raise(name, slice_):
     cfg = reduced(get_config(name))
     with pytest.raises(NotImplementedError, match=slice_):

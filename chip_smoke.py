@@ -90,7 +90,8 @@ after:
     in float64 within a derived rounding bound, with two planted faults
     that must break both, timed at the model's shape on per-head B and C
     and on one group's B and C shared by all heads, as the model passes
-    them (with each of its three passes' device time from torch.profiler);
+    them (with each of its three passes' device time from torch.profiler),
+    all of it also at zamba2-2.7b's scan shape (4, 2048, 80, 64, 64, 256);
     ``Model.loss`` of mamba2-780m at full width (48 layers, d_model
     1536, 48 heads of 64, N 128, vocab 50,280, seeded weights) on
     4 x 2048 tokens with the kernel (48 launches a forward) against the
@@ -132,6 +133,29 @@ after:
     image embeddings and 128 tokens (3,008 positions, ragged at the hd-128
     tile) with 4 decode steps and ``Model.loss``, compared, bounded and
     faulted as for the MoE model.
+  * head_dim 80: the flash kernel at zamba2-2.7b's loss shape (4, 2048,
+    32, 1, 80), stablelm-3b's served shape (1, 128, 32, 1, 80) and a
+    ragged shape with Sk != Sq, in float32 and bfloat16, causal and full,
+    against the plain version and its float64 element bound, with the two
+    tile faults at the zamba2 shape, timed beside SDPA.  stablelm-3b at
+    full width and depth (32 layers, d_model 2560, 32 heads of 80,
+    LayerNorm, vocab 50,304, seeded weights) served as qwen2-0.5b is
+    (flash once a layer a prefill, 256 launches) against the plain
+    engine in bfloat16 and float32.
+  * The hybrid family: zamba2-2.7b at full width and depth (54 Mamba-2
+    layers of d_model 2560, 80 heads of 64, N 64; one shared attention +
+    MLP block of 32 heads of 80 after every 6 layers; vocab 32,000; seeded
+    weights).  ``Model.loss`` on 4 x 2048 tokens with the kernels (54
+    scans and 9 flash calls a loss) against the plain path in float32
+    and bfloat16: the logits and loss, every layer's scan and every
+    shared-block attention output (each against its plain version on the
+    same inputs) and every flash call's float64 element bound, with four
+    planted faults (the two scan faults in every layer, the middle group's
+    shared attention zeroed, the causal mask off), each above every limit
+    of the kernel it is planted in; then ``ServeEngine`` (4 requests of
+    128 prompt and 16 new tokens, 4 slots), which launches no kernel, as
+    the reference's engine does, against the plain engine in bfloat16
+    and float32.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -604,6 +628,24 @@ FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
                 FLASH_MOE, FLASH_VLM]
 FLASH_PREFILL = (4, 2048, 2, 7, 64)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# head_dim 80: stablelm-3b (dense, 32 heads of 80, served as qwen2-0.5b is)
+# and zamba2-2.7b (hybrid: 54 Mamba-2 layers, one shared attention block
+# of 32 heads of 80 after every 6, scored on HYBRID_B x HYBRID_S tokens and
+# served on HYBRID_SERVE), both at full width and depth
+STABLELM_ARCH, HYBRID_ARCH = "stablelm-3b", "zamba2-2.7b"
+HYBRID_B, HYBRID_S = 4, 2048
+HYBRID_SERVE = (4, 128, 16, 4)
+# their flash shapes: zamba2's loss (G = 32, R = 1) and stablelm-3b's served
+# prompt, and a ragged shape: (B, Sq, G, R, hd) and Sk, Sq and Sk neither a
+# multiple of the 128-key tile nor equal
+FLASH_HYBRID = (HYBRID_B, HYBRID_S, 32, 1, 80)
+FLASH_STABLELM = (1, SERVE_PROMPT, 32, 1, 80)
+FLASH_RAGGED_80 = ((2, 300, 4, 3, 80), 177)
+# launches on the new paths, as the configs give them: zamba2's Model.loss
+# runs the scan once an ssm layer and flash once a group of 6; stablelm-3b's
+# engine runs flash once a layer a prefill, 8 prefills
+HYBRID_LOSS_LAUNCHES = {"ssd_scan": 54, "flash_attention_fwd": 9}
+STABLELM_SERVE_LAUNCHES = 32 * SERVE_REQUESTS
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -619,6 +661,9 @@ SSM_ARCH = "mamba2-780m"
 SSD_SHAPES = [(1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),
               (1, 256, 2, 64, 16, 64), (1, 128, 2, 32, 128, 128)]
 SSD_MODEL = (4, 2048, 48, 64, 128, 256)
+# zamba2-2.7b's 4 x 2048 loss: 80 heads of 64, N 64 (the 128-wide template
+# with columns n >= 64 masked)
+SSD_HYBRID = (HYBRID_B, HYBRID_S, 80, 64, 64, 256)
 SSD_RAGGED = [(1, 300, 48, 64, 128, 256), (2, 100, 48, 64, 128, 256)]
 # rtol, atol of the reference's kernel test (tests/test_kernels.py)
 SSD_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (5e-2, 5e-1)}
@@ -1475,12 +1520,14 @@ def flash_bound_ms(shape, causal, dtype):
                                        else "bytes")
 
 
-def flash_inputs(shape, dtype, dev, seed):
+def flash_inputs(shape, dtype, dev, seed, sk=None):
+    """q (B, S, G, R, hd) and k, v (B, Sk, G, hd), Sk = S unless given."""
     b, s, g, r, hd = shape
+    sk = s if sk is None else sk
     gen = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn(b, s, g, r, hd, generator=gen, device=dev).to(dtype),
-            torch.randn(b, s, g, hd, generator=gen, device=dev).to(dtype),
-            torch.randn(b, s, g, hd, generator=gen, device=dev).to(dtype))
+            torch.randn(b, sk, g, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(b, sk, g, hd, generator=gen, device=dev).to(dtype))
 
 
 def visible_mask(sq, sk, causal, dev):
@@ -1514,14 +1561,18 @@ def bf16_excess(out, exact, mag):
     return float(((out.double() - exact).abs() / (1.05 * slack + ulp)).max())
 
 
-def check_flash(shape, causal, dtype, dev, seed):
-    """Kernel against plain version on the same inputs, and in bf16 also
-    element by element against ``bf16_exact`` within ``bf16_excess``'s
-    bound; returns the inputs, the max abs error and, in bf16, the exact
-    output and P @ |V|."""
+def check_flash(shape, causal, dtype, dev, seed, sk=None, f32_bound=False):
+    """Kernel against plain version on the same inputs (Sk keys, S unless
+    given), and in bf16 also element by element against ``bf16_exact``
+    within ``bf16_excess``'s bound (in float32 against ``f32_excess``'s
+    with ``f32_bound``); returns the inputs, the max abs error and, in
+    bf16, the exact output and P @ |V|."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
-    q, k, v = flash_inputs(shape, dtype, dev, seed)
+    q, k, v = flash_inputs(shape, dtype, dev, seed, sk)
+    if sk is not None:
+        shape = f"{shape} Sk={sk}"
+    mask = visible_mask(q.shape[1], k.shape[1], causal, dev)
     out_k = flash_attention_fwd(q, k, v, causal=causal)
     out_p = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -1538,9 +1589,14 @@ def check_flash(shape, causal, dtype, dev, seed):
           f"flash_attention {shape} causal={causal} {dtype}: kernel != "
           f"plain (max abs err {err})")
     exact = None
+    if dtype == torch.float32 and f32_bound:
+        excess = f32_excess(out_k, q, k, v, mask)
+        print(f"flash_attention {shape} causal={causal} {dtype}: element "
+              f"bound max |err| / bound = {excess:.4f} (limit 1)", flush=True)
+        check(excess <= 1.0, f"flash_attention {shape} causal={causal} "
+                             f"{dtype}: an element is {excess} x its bound")
     if dtype == torch.bfloat16:
-        exact = bf16_exact(q, k, v, visible_mask(shape[1], shape[1], causal,
-                                                 dev))
+        exact = bf16_exact(q, k, v, mask)
         excess = bf16_excess(out_k, *exact)
         print(f"flash_attention {shape} causal={causal} {dtype}: element "
               f"bound max |err| / bound = {excess:.4f} (limit 1)", flush=True)
@@ -1765,6 +1821,17 @@ def compare_served(dev, cfg, params, out, spec=None, plain=None, label=""):
 
 
 @contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
 def planted(fault, layer=12):
     """A fault in the kernel path: the attention output of ``layer`` (the
     ``layer``-th flash call from 0) zeroed, or, for "no_causal_mask", the
@@ -1779,11 +1846,8 @@ def planted(fault, layer=12):
             return real(q, k, v, causal=False)
         out = real(q, k, v, causal=causal)
         return torch.zeros_like(out) if len(calls) == layer + 1 else out
-    ops.flash_attention = faulty
-    try:
+    with swapped(ops, "flash_attention", faulty):
         yield
-    finally:
-        ops.flash_attention = real
 
 
 def run_prefill(cfg, params, dev, use_kernel, tokens, steps):
@@ -1942,7 +2006,7 @@ class StreamLog:
         self.inputs, self.attention, self.outputs = [], [], []
         feed = iter(source.inputs) if source is not None else None
 
-        def layer(model, p_l, x, positions):
+        def layer(model, p_l, x, positions, **kwargs):
             if feed is not None:
                 want = next(feed, None)
                 check(want is not None and want.shape == x.shape,
@@ -1951,7 +2015,7 @@ class StreamLog:
                       f"{None if want is None else tuple(want.shape)}")
                 x = want
             self.inputs.append(x)
-            out = fwd(model, p_l, x, positions)
+            out = fwd(model, p_l, x, positions, **kwargs)
             self.outputs.append(out[0])
             return out
 
@@ -2008,14 +2072,15 @@ def f32_excess(out, q, k, v, mask):
 
 
 @contextlib.contextmanager
-def layer_bounds(excess):
+def layer_bounds(excess, gaps=None):
     """Every flash call in the block (one a layer, through
     ``ops.flash_attention``) is held element by element against its own
     function in float64 on the same inputs and mask (``bf16_excess`` in
     bfloat16, ``f32_excess`` in float32); appends each call's largest
-    |err| / bound.  Entered inside ``planted``, it sees the fault's
-    output."""
-    from repro_torch.kernels.flash_attention import ops
+    |err| / bound, and, given ``gaps``, its largest gap against
+    ``attention_ref`` over the plain output's largest magnitude.  Entered
+    inside ``planted``, it sees the fault's output."""
+    from repro_torch.kernels.flash_attention import attention_ref, ops
     inner = ops.flash_attention
 
     def checking(q, k, v, causal=True):
@@ -2025,12 +2090,13 @@ def layer_bounds(excess):
             excess.append(bf16_excess(out, *bf16_exact(q, k, v, mask)))
         else:
             excess.append(f32_excess(out, q, k, v, mask))
+        if gaps is not None:
+            ref = attention_ref(q, k, v, causal=causal).float()
+            gaps.append(float((out.float() - ref).abs().max()
+                              / ref.abs().max()))
         return out
-    ops.flash_attention = checking
-    try:
+    with swapped(ops, "flash_attention", checking):
         yield
-    finally:
-        ops.flash_attention = inner
 
 
 def run_scored(cfg, params, dev, use_kernel, tokens, steps, image=None):
@@ -2155,15 +2221,10 @@ def scored_phase(dev, cfg, params, tokens, steps, image=None):
                     "and decode steps then equal the plain run's by "
                     "construction, and the logits and loss follow from the "
                     "last layer)")
-            real = ops.flash_attention
-            ops.flash_attention = (lambda q, k, v, causal=True:
-                                   attention_ref(q, k, v, causal=causal))
-            try:
-                with routes.replay():
-                    floor = gap(run_scored(c, params, dev, True, tokens,
-                                           steps, image)[1], base)
-            finally:
-                ops.flash_attention = real
+            with swapped(ops, "flash_attention", attention_ref), \
+                    routes.replay():
+                floor = gap(run_scored(c, params, dev, True, tokens,
+                                       steps, image)[1], base)
             print(f"{name} {dtype} stream rounding, no kernel: the plain "
                   f"path with attention_ref in place of the kernel, routing "
                   f"replayed and the stream free, reads {floor:.3e} from the "
@@ -2191,10 +2252,11 @@ def scored_phase(dev, cfg, params, tokens, steps, image=None):
 
 def serve_phase(dev, cfg, params, spec=None):
     """(b) the main path of a dense-stack model (qwen2-0.5b at full width;
-    phi3.5-moe, llava-next): ``ServeEngine`` with the kernel in the
-    config's bf16 on ``spec`` (requests, prompt, new tokens, slots), every
-    port kernel's count 0 just before the run and read just after (flash
-    once a layer a prefill, the others 0).  Then the same requests
+    phi3.5-moe, llava-next, stablelm-3b; and zamba2-2.7b's engine):
+    ``ServeEngine`` with the kernel in the config's bf16 on ``spec``
+    (requests, prompt, new tokens, slots), every port kernel's count 0 just
+    before the run and read just after (flash once a layer a prefill, the
+    others 0; for the hybrid family every count 0).  Then the same requests
     against the engine built without the kernel in float32 and in
     bfloat16, with MoE routing replayed from the plain run.  Returns the
     run's flash launches."""
@@ -2229,10 +2291,13 @@ def serve_phase(dev, cfg, params, spec=None):
               for t in out.values()),
           f"serve {name}: a request's tokens are missing or outside the "
           "vocab")
+    # the hybrid family's prefill runs plain attention, as the reference's
+    flash = 0 if cfg.family == "hybrid" else cfg.num_layers * n
     check(launches == {"masked_min_rows": 0, "ssd_scan": 0,
-                       "flash_attention_fwd": cfg.num_layers * n},
-          f"serve {name}: launches {launches}, not flash "
-          f"{cfg.num_layers} x {n} prefills and no other kernel")
+                       "flash_attention_fwd": flash},
+          f"serve {name}: launches {launches}, not flash {flash} "
+          f"({cfg.family}: {cfg.num_layers} layers, {n} prefills) and no "
+          "other kernel")
     c32 = dataclasses.replace(cfg, dtype="float32")
     out32 = ServeEngine(c32, params, batch_slots=slots, max_len=max_len,
                         device=dev).run(serve_requests(c32, n, prompt, new))
@@ -2262,7 +2327,7 @@ def moe_phase(dev):
     layers, seeded weights, under each ``moe_impl``: serving, then the
     teacher-forced comparison on ``MOE_B`` x ``MOE_S`` tokens and
     ``MOE_DECODE`` decode steps.  Returns each serve run's flash
-    launches, by path."""
+    launches, by kernel and path."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     params = lm_params(cfg, dev)
@@ -2276,8 +2341,8 @@ def moe_phase(dev):
     for impl in ("einsum", "scatter"):
         c = dataclasses.replace(cfg, moe_impl=impl)
         t0 = time.perf_counter()
-        launches[f"{MOE_ARCH} {impl} serve"] = serve_phase(dev, c, params,
-                                                            MOE_SERVE)
+        launches[("flash_attention_fwd", f"{MOE_ARCH} {impl} serve")] = \
+            serve_phase(dev, c, params, MOE_SERVE)
         scored_phase(dev, c, params, tokens, MOE_DECODE)
         print(f"{MOE_ARCH} {impl}: host wall {time.perf_counter() - t0:.3f} "
               "s", flush=True)
@@ -2289,13 +2354,14 @@ def vlm_phase(dev):
     serving behind the zero image prefix, then the teacher-forced
     comparison on 2,880 seeded image embeddings (x 0.1, as the reference's
     smoke tests draw them) and ``VLM_PROMPT`` tokens with ``VLM_DECODE``
-    decode steps.  Returns the serve run's flash launches, by path."""
+    decode steps.  Returns the serve run's flash launches, by kernel and
+    path."""
     from repro_torch.configs import get_config
     cfg = get_config(VLM_ARCH)
     params = lm_params(cfg, dev)
     print(f"{VLM_ARCH}: {param_count(params)} parameters", flush=True)
-    launches = {f"{VLM_ARCH} serve": serve_phase(dev, cfg, params,
-                                                 VLM_SERVE)}
+    launches = {("flash_attention_fwd", f"{VLM_ARCH} serve"): serve_phase(
+        dev, cfg, params, VLM_SERVE)}
     gen = torch.Generator(device=dev).manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (1, VLM_PROMPT + VLM_DECODE),
                            generator=gen, device=dev)
@@ -2518,11 +2584,11 @@ def ssd_pass_times(inputs, chunk):
 
 def ssd_phase(dev):
     """(d) the SSD kernel against its plain version and its float64 function
-    at every checked shape, two planted faults at the model's shape, and
-    times at the model's shape on per-head B and C and on one group's B and
-    C shared by all heads (head stride 0), as ``Model.loss`` passes them;
-    the shared bf16 run (the config's dtype and the main path's layout)
-    goes in the record."""
+    at every checked shape, two planted faults at each model's shape
+    (mamba2-780m's and zamba2-2.7b's), and times there on per-head B and C
+    and on one group's B and C shared by all heads (head stride 0), as
+    ``Model.loss`` passes them; mamba2-780m's shared bf16 run (the config's
+    dtype and the main path's layout) goes in the record."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     seed = 200
     for shape in SSD_SHAPES + SSD_RAGGED:
@@ -2530,16 +2596,18 @@ def ssd_phase(dev):
             seed += 1
             check_ssd(shape, dtype, dev, seed)
     rec = {}
-    chunk = SSD_MODEL[-1]
-    for dtype in (torch.float32, torch.bfloat16):
-        inputs, err, plain, exact = check_ssd(SSD_MODEL, dtype, dev, 299)
+    for model, dtype in ((m, d) for m in (SSD_MODEL, SSD_HYBRID)
+                         for d in (torch.float32, torch.bfloat16)):
+        chunk = model[-1]
+        seed = 299 if model == SSD_MODEL else 297
+        inputs, err, plain, exact = check_ssd(model, dtype, dev, seed)
         for name in SSD_FAULTS:
             out = faulty_scan(ssd_scan, name)(*inputs, chunk)
             excess = ssd_excess(out, *exact)
             within = ssd_plain_excess(out, plain)
-            print(f"ssd_scan planted fault {name} {dtype}: element bound "
-                  f"max |err| / bound = {excess:.4e}; |err| / test limit "
-                  f"{within:.4e}", flush=True)
+            print(f"ssd_scan {model} planted fault {name} {dtype}: element "
+                  f"bound max |err| / bound = {excess:.4e}; |err| / test "
+                  f"limit {within:.4e}", flush=True)
             check(excess > 1.0 and within > 1.0,
                   f"ssd_scan: planted fault {name} ({dtype}) reads {excess} "
                   f"x the bound and {within} x the test limit, not above "
@@ -2548,15 +2616,15 @@ def ssd_phase(dev):
         for shared in (False, True):
             if shared:
                 del inputs
-                inputs, err, plain, exact = check_ssd(SSD_MODEL, dtype, dev,
-                                                      298, shared=True)
+                inputs, err, plain, exact = check_ssd(model, dtype, dev,
+                                                      seed - 1, shared=True)
                 del exact, plain
-            groups = 1 if shared else SSD_MODEL[2]
+            groups = 1 if shared else model[2]
             ms = cuda_ms(lambda: ssd_scan(*inputs, chunk))
             plain_ms = cuda_ms(lambda: ssd_scan_ref(*inputs, chunk))
             bound_ms, bound_by, cb, rest, nbytes = ssd_bound_ms(
-                SSD_MODEL, dtype, groups)
-            print(f"ssd_scan {SSD_MODEL} {dtype} B/C "
+                model, dtype, groups)
+            print(f"ssd_scan {model} {dtype} B/C "
                   f"{'shared by all heads' if shared else 'per head'}: "
                   f"ms={ms:.6f} plain_ms={plain_ms:.6f} "
                   f"bound_ms={bound_ms:.6f} ({bound_by}: C B^T {cb:.4e} "
@@ -2565,11 +2633,12 @@ def ssd_phase(dev):
                   f"bound/ms={bound_ms / ms:.4f} max_abs_err={err}",
                   flush=True)
             if dtype == torch.bfloat16 and shared:
-                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": None}
+                if model == SSD_MODEL:
+                    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": None}
                 passes = ssd_pass_times(inputs, chunk)
-                print(f"ssd_scan {SSD_MODEL} {dtype} B/C shared by all "
+                print(f"ssd_scan {model} {dtype} B/C shared by all "
                       "heads, each pass's mean device ms (torch.profiler, 5 "
                       "calls): " + ", ".join(f"{k}={v:.6f}"
                                              for k, v in passes.items()),
@@ -2582,12 +2651,8 @@ def planted_ssd(fault):
     """``faulty_scan``'s fault in the model's kernel path, in every
     layer."""
     from repro_torch.kernels.ssd_scan import ops
-    real = ops.ssd
-    ops.ssd = faulty_scan(real, fault)
-    try:
+    with swapped(ops, "ssd", faulty_scan(ops.ssd, fault)):
         yield
-    finally:
-        ops.ssd = real
 
 
 @contextlib.contextmanager
@@ -2609,11 +2674,8 @@ def scan_gaps(gaps):
         shares.append(float(ref.square().mean().sqrt()
                             / xh.float().square().mean().sqrt()))
         return y
-    ops.ssd = recording
-    try:
+    with swapped(ops, "ssd", recording):
         yield
-    finally:
-        ops.ssd = inner
     if shares:
         print(f"ssm scan share of the mixer (RMS of the scan over RMS of x) "
               f"across {len(shares)} layers: min {min(shares):.3e} max "
@@ -2786,6 +2848,227 @@ def ssm_serve_phase(dev, cfg, params):
           "vocab")
     check(launches == 0, f"serve {cfg.name}: ssd_scan launched {launches} "
                          "times; prefill and decode do not run it")
+
+
+def flash80_phase(dev):
+    """(g) the flash kernel at head_dim 80: zamba2-2.7b's loss shape,
+    stablelm-3b's served shape and a ragged shape (Sq and Sk neither equal
+    nor multiples of the 128-key tile), in float32 and bfloat16, causal and
+    full, against the plain version and element by element against the
+    float64 function (``f32_excess``, ``bf16_excess``); the two tile
+    faults at the zamba2 shape; then timed at both model shapes beside the
+    plain version and scaled_dot_product_attention.  No model runs here,
+    so it returns no launches."""
+    seed = 500
+    for shape, sk in ((FLASH_HYBRID, None), (FLASH_STABLELM, None),
+                      FLASH_RAGGED_80):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                (q, k, v), _, exact = check_flash(shape, causal, dtype, dev,
+                                                  seed, sk, f32_bound=True)
+                if (shape, causal, dtype) == (FLASH_HYBRID, True,
+                                              torch.bfloat16):
+                    planted_tile_faults(q, k, v, exact)
+                del q, k, v, exact
+    time_flash(FLASH_HYBRID, dev, f"{HYBRID_ARCH}'s {HYBRID_B} x {HYBRID_S} "
+               "loss")
+    time_flash(FLASH_STABLELM, dev, f"{STABLELM_ARCH}'s served prompt")
+    return {}
+
+
+def stablelm_phase(dev):
+    """(h) stablelm-3b at full width and depth, seeded weights: the dense
+    family at head_dim 80, served as qwen2-0.5b is (``SERVE_SPEC``, flash
+    once a layer a prefill) and compared with the plain engine in
+    bfloat16 and float32.  Returns its flash launches, by kernel and
+    path."""
+    from repro_torch.configs import get_config
+    cfg = get_config(STABLELM_ARCH)
+    check(cfg.num_layers * SERVE_REQUESTS == STABLELM_SERVE_LAUNCHES,
+          f"{STABLELM_ARCH}: {cfg.num_layers} layers x {SERVE_REQUESTS} "
+          f"prefills != {STABLELM_SERVE_LAUNCHES}")
+    params = lm_params(cfg, dev)
+    print(f"{STABLELM_ARCH}: {param_count(params)} parameters", flush=True)
+    n = serve_phase(dev, cfg, params)
+    return {("flash_attention_fwd", f"{STABLELM_ARCH} serve"): n}
+
+
+def hybrid_fault(fault, group):
+    """Plants ``fault`` in zamba2's kernel path: an SSD fault in every
+    layer's scan, the shared block's application in ``group`` (its flash
+    call, from 0) zeroed, or the causal mask off in every one."""
+    if fault is None:
+        return contextlib.nullcontext()
+    if fault in SSD_FAULTS:
+        return planted_ssd(fault)
+    return planted(fault, group)
+
+
+def hybrid_run(model, params, batch, fault=None, group=0):
+    """``Model.loss`` and ``Model.forward`` with ``fault`` planted (each in
+    a planting of its own, so a fault counted by flash call hits the same
+    call in both).  Returns the logits, the loss and, from the forward,
+    each ssm layer's scan gap and each shared-block application's
+    attention gap against the plain versions on the same inputs, and each
+    flash call's largest element |err| / bound."""
+    with hybrid_fault(fault, group):
+        loss, _ = model.loss(params, batch)
+    scans, attn, excess = [], [], []
+    with hybrid_fault(fault, group), scan_gaps(scans), \
+            layer_bounds(excess, attn), torch.inference_mode():
+        logits = model.forward(params, batch)[0]
+    return logits, loss, scans, attn, excess
+
+
+def hybrid_loss_phase(dev, cfg, params):
+    """(i) zamba2-2.7b's ``Model.loss`` on ``HYBRID_B`` x ``HYBRID_S``
+    tokens with the kernels (``ssd_scan`` once an ssm layer, flash once a
+    group, read around the run) against the plain path, in float32 and
+    bfloat16, and four planted faults: the two ``SSD_FAULTS`` in every
+    layer's scan, the shared block zeroed in the middle group and the
+    causal mask off.  Each run is read at the logits and loss (against the
+    plain path), at every layer's scan and every shared-block
+    application's attention (each against its plain version on the same
+    inputs) and at every flash call's float64 element bound.
+
+    Gates.  float32: the logits and loss, every scan and every attention
+    output within ``SSM_LIMIT``; every element bound within 1.  bfloat16:
+    every scan within ``SSM_SCAN_LIMIT_BF16`` and every element bound
+    within 1, layer by layer on each kernel call's own inputs.  A fault
+    in one kernel must read above every limit that kernel passes (and, in
+    float32, the logits' limit), while the other kernel's checks, which
+    hold that kernel to its plain version on its own inputs, still pass.
+    The bf16 logits are not gated: the "stream rounding" line prints how
+    far the kernels' plain versions (``attention_ref``, ``ssd_split_ref``)
+    land from the plain path at the logits and loss with no kernel
+    involved, and a scan fault moves the float32 logits by less (the scan
+    is under 1% of each mixer's output at the reference's init; the share
+    line prints it).  In float32, prefill's last logits are held against
+    the kernel forward's last position.  Returns the launches of the
+    config's dtype."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_split_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+    counted = (ssd_scan, flash_attention_fwd)
+    want = {"ssd_scan": cfg.num_layers,
+            "flash_attention_fwd": cfg.num_layers // cfg.hybrid_period}
+    check(want == HYBRID_LOSS_LAUNCHES, f"{cfg.name}: the config gives "
+                                        f"{want}, not {HYBRID_LOSS_LAUNCHES}")
+    mid = want["flash_attention_fwd"] // 2
+    faults = SSD_FAULTS + (f"group_{mid}_attention_zeroed", "no_causal_mask")
+    own = {"ssd": ("scan",), "flash": ("attention", "bound")}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (HYBRID_B, HYBRID_S),
+                                     generator=gen, device=dev)}
+    vocab = cfg.vocab_size
+    launches = None
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        kern = build_model(c, use_kernel=True, device=dev)
+        plain = build_model(c, use_kernel=False, device=dev)
+        kern.loss(params, batch)                        # warm
+        for k in counted:
+            k.launches = 0
+        (loss_k, met), wall_k = timed(lambda: kern.loss(params, batch))
+        n = {k.__name__: k.launches for k in counted}
+        print(f"hybrid loss {cfg.name} {HYBRID_B}x{HYBRID_S} {dtype}: "
+              f"launches {n} loss={float(loss_k)!r} "
+              f"tokens={float(met['tokens'])}", flush=True)
+        check(n == want, f"hybrid loss {dtype}: launches {n}, not {want}")
+        if dtype == cfg.dtype:
+            launches = n
+        (loss_p, _), wall_p = timed(lambda: plain.loss(params, batch))
+        _, wall_k2 = timed(lambda: kern.loss(params, batch))
+        _, wall_p2 = timed(lambda: plain.loss(params, batch))
+        print(f"hybrid loss {cfg.name} {HYBRID_B}x{HYBRID_S} {dtype}: wall_s "
+              f"kernel={wall_k:.4f},{wall_k2:.4f} plain={wall_p:.4f},"
+              f"{wall_p2:.4f}", flush=True)
+        with torch.inference_mode():
+            logits_p = plain.forward(params, batch)[0]
+        with swapped(fa_ops, "flash_attention", attention_ref), \
+                swapped(ssd_ops, "ssd", ssd_split_ref):
+            with torch.inference_mode():
+                logits_f = kern.forward(params, batch)[0]
+            loss_f, _ = kern.loss(params, batch)
+        floor = ssm_gap(logits_f, loss_f, logits_p, loss_p, vocab)
+        del logits_f
+        print(f"hybrid loss {dtype} stream rounding, no kernel: the plain "
+              f"path with attention_ref and ssd_split_ref in place of the "
+              f"kernels reads {floor:.3e} from the plain path at the logits "
+              "and loss", flush=True)
+        reads = {}
+        for fault in (None,) + faults:
+            logits, loss, scans, attn, excess = hybrid_run(
+                kern, params, batch, fault, mid)
+            check(len(scans) == want["ssd_scan"]
+                  and len(attn) == len(excess) == want["flash_attention_fwd"],
+                  f"hybrid loss {dtype}: {len(scans)} scans and {len(attn)} "
+                  f"flash calls read, not {want}")
+            check(bool(torch.isfinite(logits.float()).all())
+                  and bool(torch.isfinite(loss)),
+                  f"hybrid loss {dtype} {fault}: non-finite output")
+            reads[fault or "kernel"] = {
+                "logits": ssm_gap(logits, loss, logits_p, loss_p, vocab),
+                "scan": max(scans), "attention": max(attn),
+                "bound": max(excess)}
+            if fault is None and dtype == "float32":
+                last_k = logits[:, -1, :vocab].clone()
+            del logits
+        del logits_p
+        if dtype == "float32":
+            with torch.inference_mode():
+                _, last_p = kern.prefill(params, batch, max_len=HYBRID_S)
+            cross = float((last_p[:, :vocab].float() - last_k.float())
+                          .abs().max() / last_k.float().abs().max())
+            print(f"hybrid prefill vs forward(use_kernel=True) last "
+                  f"position, float32: gap={cross:.3e} (limit 1e-4)",
+                  flush=True)
+            check(cross <= 1e-4, f"hybrid: prefill's last logits differ "
+                                 f"from the kernel forward's by {cross}")
+            limits = {"logits": SSM_LIMIT, "scan": SSM_LIMIT,
+                      "attention": SSM_LIMIT, "bound": 1.0}
+        else:
+            limits = {"scan": SSM_SCAN_LIMIT_BF16, "bound": 1.0}
+        got = reads.pop("kernel")
+        print(f"hybrid loss {dtype} kernel: " + ", ".join(
+            f"{g}={got[g]:.3e} (limit {lim})" for g, lim in limits.items()),
+            flush=True)
+        check(all(got[g] <= lim for g, lim in limits.items()),
+              f"hybrid loss {dtype}: kernel reads {got}, limits {limits}")
+        for fault, r in reads.items():
+            mine = own["ssd" if fault in SSD_FAULTS else "flash"]
+            above = [g for g in limits if g in mine or g == "logits"]
+            print(f"hybrid loss {dtype} planted fault {fault}: " + ", ".join(
+                f"{g}={r[g]:.3e} ({'above' if g in above else 'within'} "
+                f"{lim})" for g, lim in limits.items()), flush=True)
+            check(all((r[g] > lim) == (g in above)
+                      for g, lim in limits.items()),
+                  f"hybrid loss {dtype}: planted fault {fault} reads {r}; "
+                  f"it must read above {above} and within the rest of "
+                  f"{limits}")
+    return launches
+
+
+def hybrid_phase(dev):
+    """(i)-(j) zamba2-2.7b at full width and depth, seeded weights: the
+    scored loss of ``hybrid_loss_phase``, then ``ServeEngine`` on
+    ``HYBRID_SERVE`` in bfloat16 (prefill and decode run no kernel, as in
+    the reference) against the plain engine in bfloat16 and float32.
+    Returns the loss's launches, by kernel and path."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    params = lm_params(cfg, dev)
+    print(f"{HYBRID_ARCH}: {param_count(params)} parameters", flush=True)
+    t0 = time.perf_counter()
+    launches = hybrid_loss_phase(dev, cfg, params)
+    print(f"{HYBRID_ARCH} loss: host wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    serve_phase(dev, cfg, params, HYBRID_SERVE)
+    return {(k, f"{HYBRID_ARCH} loss"): n for k, n in launches.items()}
 
 
 def sass_counts(build):
@@ -2966,7 +3249,7 @@ def main() -> int:
     cfg = get_config(LM_ARCH)
     params = lm_params(cfg, dev)
     flash_launches = serve_phase(dev, cfg, params)
-    flash_paths = {f"{LM_ARCH} serve": flash_launches}
+    by_path = {"flash_attention_fwd": {f"{LM_ARCH} serve": flash_launches}}
     prefill_phase(dev, cfg, params)
     del params
 
@@ -2975,16 +3258,21 @@ def main() -> int:
     scfg = get_config(SSM_ARCH)
     sparams = lm_params(scfg, dev)
     ssd_launches = ssm_loss_phase(dev, scfg, sparams)
+    by_path["ssd_scan"] = {f"{SSM_ARCH} loss": ssd_launches}
     ssm_serve_phase(dev, scfg, sparams)
     del sparams
 
     # ---- the moe and vlm families: phi3.5-moe (8 of 32 layers) and
-    # llava-next-mistral-7b, flash attention in each prefill at hd 128
-    for phase in (moe_phase, vlm_phase):
+    # llava-next-mistral-7b, flash attention in each prefill at hd 128;
+    # then head_dim 80: the flash kernel there, stablelm-3b's serving and
+    # the hybrid family (zamba2-2.7b: its loss runs both kernels)
+    for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
+                  hybrid_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        flash_paths.update(phase(dev))
+        for (kernel, path), n in phase(dev).items():
+            by_path[kernel][path] = n
         torch.cuda.synchronize()
         print(f"{phase.__name__}: host wall {time.perf_counter() - t0:.3f} "
               f"s, peak device memory "
@@ -3002,12 +3290,13 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
-        "launches": flash_launches, "launches_by_path": flash_paths,
-        **flash_rec}, {
+        "launches": flash_launches,
+        "launches_by_path": by_path["flash_attention_fwd"], **flash_rec}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:67",
-        "launches": ssd_launches, **ssd_rec}]
+        "launches": ssd_launches, "launches_by_path": by_path["ssd_scan"],
+        **ssd_rec}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,32 +19,46 @@
 // As on the TPU, the R query heads of a group are flattened into rows, so
 // every key and value tile is staged in shared memory once and serves all R
 // heads of its group.
-//   * bf16: one block per (b, g, 192 flattened q*R rows; 128 at hd = 128):
-//     three consumer warpgroups of 64 rows (two at hd = 128, whose
-//     accumulators need the registers) and one producer warpgroup, which
-//     gives its registers to the consumers (setmaxnreg).  The producer's
-//     first lane streams K and V tiles of 128 keys with TMA
-//     (cp.async.bulk.tensor over a 4-D map (hd, G, Sk, B), box
-//     (min(hd, 64), 1, 128, 1), 128-byte swizzle, or 64-byte at hd = 32;
-//     hd = 128 takes two boxes a tile) into a ring of as many stages as fit
-//     in shared memory (6 at hd = 64, 3 at hd = 128).  Each stage has a full
-//     barrier for K, one for V, and an empty barrier that each consumer warp
-//     arrives on when it is done with the stage.  TMA's zero fill covers
-//     keys past Sk; the score mask still applies.  The tensor maps are
-//     encoded on the host each call by cuTensorMapEncodeTiled, reached
-//     through the runtime's cudaGetDriverEntryPoint(ByVersion), so nothing
-//     links -lcuda, and are passed as __grid_constant__ parameters.  q is
-//     read once per block: with R = 7 its flattened rows do not form one TMA
-//     box, so each consumer warpgroup loads its 64 rows with 16-byte loads,
-//     scales them in bf16 and stores them in the same swizzled layout.
+//   * bf16: one block per (b, g, 192 flattened q*R rows; 128 at hd = 80
+//     and hd = 128): three consumer warpgroups of 64 rows (two at hd = 80
+//     and 128, whose accumulators need the registers: with three, a thread
+//     has 160, and hd = 96's 48 accumulators, 64 scores and 32 words of p
+//     spill there and ptxas serialises the wgmma (C7512), which ran slower
+//     than two) and one producer warpgroup, which gives its registers to
+//     the consumers (setmaxnreg).  A tile is stored as column blocks of 64
+//     columns with the 128-byte swizzle (hd 64, 128), or of 32 columns with
+//     the 64-byte swizzle (hd 32, and hd 80, whose rows do not split into
+//     64-column blocks).  hd = 80 runs padded to 96 columns in shared
+//     memory, three 32-column blocks, the layout hd = 32 has: the tensor
+//     maps keep the real inner dim of 80 (a 160-byte row stride), so TMA's
+//     zero fill writes columns 80-95 of K and V, the q load writes zeros
+//     there, Q K^T sums the zeros in (20% more MMA work than exact hd 80),
+//     P V runs at n = 96 and the store drops columns 80-95.  The real hd
+//     sets the strides, the q offsets and the scale (the wrapper's
+//     1/sqrt(hd)); the padded width sets only the shared-memory layout and
+//     the products.  The producer's first lane streams K and V tiles of
+//     128 keys with TMA (cp.async.bulk.tensor over a 4-D map (hd, G, Sk,
+//     B), box (column block, 1, 128, 1); hd = 80 and hd = 128 take three
+//     and two boxes a tile) into a ring of as many stages as fit in shared
+//     memory (6 at hd = 64, 4 at hd = 80, 3 at hd = 128).  Each stage has a
+//     full barrier for K, one for V, and an empty barrier that each
+//     consumer warp arrives on when it is done with the stage.  TMA's zero
+//     fill covers keys past Sk; the score mask still applies.  The tensor
+//     maps are encoded on the host each call by cuTensorMapEncodeTiled,
+//     reached through the runtime's cudaGetDriverEntryPoint(ByVersion), so
+//     nothing links -lcuda, and are passed as __grid_constant__
+//     parameters.  q is read once per block: with R = 7 its flattened rows
+//     do not form one TMA box, so each consumer warpgroup loads its 64 rows
+//     with 16-byte loads, scales them in bf16 and stores them in the same
+//     swizzled layout.
 //     S = Q K^T is wgmma.m64n128k16 with both operands in shared memory
 //     (K-major descriptors); the online softmax runs in registers on the
 //     accumulator layout, in base 2 (ex2.approx); p is rounded to bf16 in
 //     registers and is the register A operand of O += P V
-//     (wgmma.m64n<hd>k16), whose B operand is the V tile through an MN-major
-//     descriptor.  Tile t's Q K^T is issued with tile t-1's P V behind it,
-//     so t's softmax overlaps that P V, and the warpgroups take turns at
-//     issuing (named barriers), so one's softmax overlaps another's
+//     (wgmma.m64n<padded hd>k16), whose B operand is the V tile through an
+//     MN-major descriptor.  Tile t's Q K^T is issued with tile t-1's P V
+//     behind it, so t's softmax overlaps that P V, and the warpgroups take
+//     turns at issuing (named barriers), so one's softmax overlaps another's
 //     products.  The wait loops and the elected arrivals stay inside asm, so
 //     the compiler sees no divergent branch near a wgmma (it would serialise
 //     them).  Only tiles that cross the diagonal or Sk are masked.  Row
@@ -53,8 +67,9 @@
 //   * float32: the tensor cores would round to TF32, so the products run on
 //     the CUDA cores in blocks of 4 warps and 64 rows: lane j scores key j
 //     of a 32-key tile against the warp's 16 rows (q and k from padded
-//     shared memory, conflict-free), then each lane accumulates its hd/32
-//     output columns from p staged in shared memory.
+//     shared memory, conflict-free), then each lane accumulates its
+//     ceil(hd/32) output columns from p staged in shared memory (at hd = 80
+//     the third, columns 64-79, only on lanes 0-15).
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -111,14 +126,16 @@ constexpr int kKeys = 128;                  // keys per K/V tile
 constexpr int kProducerRegs = 24;           // a producer thread after setmaxnreg
 
 // Shared memory of the bf16 kernel: q (each consumer warpgroup's 64 rows),
-// the K and V stages, then the barriers.  A tile of rows x hd is stored as
-// hd / kCols column blocks of rows x kCols, each row kRowBytes long and
-// swizzled over kRowBytes (the TMA map's and the wgmma descriptors').
+// the K and V stages, then the barriers.  A tile of rows x hd is stored
+// padded to kPad columns, as kPad / kCols column blocks of rows x kCols,
+// each row kRowBytes long and swizzled over kRowBytes (the TMA map's and
+// the wgmma descriptors').
 template <int HD>
 struct Bf16Tile {
   // consumer warpgroups of 64 rows: three at hd <= 64 (each K/V tile then
-  // serves 192 rows), two at hd = 128, whose accumulators need more
-  // registers; one producer warpgroup after them
+  // serves 192 rows), two at hd = 80 and 128, whose accumulators need more
+  // registers than three leave (at hd 80 three spill); one producer
+  // warpgroup after them
   static constexpr int kConsumers = HD <= 64 ? 3 : 2;
   static constexpr int kBlockRows = kWgRows * kConsumers;
   static constexpr int kProducerWarp = kConsumers * 4;
@@ -126,12 +143,15 @@ struct Bf16Tile {
   // registers a consumer thread takes after setmaxnreg: what the producer
   // warpgroup gives up (kConsumers x 128 x regs + 128 x 24 <= 65,536)
   static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
-  static constexpr int kCols = HD < 64 ? HD : 64;
+  // 64-column blocks (128-byte swizzle) where hd splits into them, else
+  // 32-column blocks (64-byte swizzle); kPad is hd rounded up to a block
+  static constexpr int kCols = HD % 64 == 0 ? 64 : 32;
+  static constexpr int kPad = (HD + kCols - 1) / kCols * kCols;
   static constexpr int kRowBytes = kCols * 2;
-  static constexpr int kWgQBytes = kWgRows * HD * 2;
-  static constexpr int kTileBytes = kKeys * HD * 2;
-  // as many K/V stages as fit beside q in 227 KB, up to 8: 6 at hd 64, 3 at
-  // hd 128, so the loads run well ahead of the consumers
+  static constexpr int kWgQBytes = kWgRows * kPad * 2;
+  static constexpr int kTileBytes = kKeys * kPad * 2;
+  // as many K/V stages as fit beside q in 227 KB, up to 8: 6 at hd 64, 4 at
+  // hd 80, 3 at hd 128, so the loads run well ahead of the consumers
   static constexpr int kFit =
       (232448 - 1024 - kConsumers * kWgQBytes - 256) / (2 * kTileBytes);
   static constexpr int kStages = kFit < 8 ? kFit : 8;
@@ -341,6 +361,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
+// D (64 x 96, float32) += A (64 x 16, bf16 in registers) B (16 x 96, bf16
+// in shared memory, MN-major).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b);
@@ -355,6 +403,12 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
   wgmma_rs_n64(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  wgmma_rs_n96(d, a, b);
 }
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
@@ -386,8 +440,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
   using T = Bf16Tile<HD>;
   constexpr int kConsumers = T::kConsumers, kBlockRows = T::kBlockRows;
   constexpr int kCols = T::kCols, kRowBytes = T::kRowBytes;
-  constexpr int kStages = T::kStages;
-  constexpr int kVecPerRow = HD / 8;     // 16-byte vectors per row
+  constexpr int kStages = T::kStages, kPad = T::kPad;
+  constexpr int kVecPerRow = HD / 8;     // 16-byte vectors of a real row
+  constexpr int kPadVecs = kPad / 8;     // and of a padded row
   constexpr int kNT = kKeys / 8;         // score n-tiles of 8 keys
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment, which the swizzle patterns assume
@@ -435,12 +490,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
         const uint32_t v_dst = smem_addr(sV + s * T::kTileBytes);
         mbar_expect_tx(full_k(s), T::kTileBytes);
 #pragma unroll
-        for (int c = 0; c < HD / kCols; ++c)
+        for (int c = 0; c < kPad / kCols; ++c)
           tma_load_4d(k_dst + c * T::kColBlockBytes, &k_map, full_k(s),
                       c * kCols, g, t * kKeys, b);
         mbar_expect_tx(full_v(s), T::kTileBytes);
 #pragma unroll
-        for (int c = 0; c < HD / kCols; ++c)
+        for (int c = 0; c < kPad / kCols; ++c)
           tma_load_4d(v_dst + c * T::kColBlockBytes, &v_map, full_v(s),
                       c * kCols, g, t * kKeys, b);
       }
@@ -456,12 +511,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
   unsigned char* sQw = sQ + wg * T::kWgQBytes;
 
   // q rows, scaled in bf16 as the TPU kernel does, into the swizzled layout
-  for (int i = wt; i < kWgRows * kVecPerRow; i += 128) {
-    const int rr = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-    // rows past the end read row 0 and are zeroed: a select, not a branch
-    const bool ok = wrow0 + rr < n_rows;
+  for (int i = wt; i < kWgRows * kPadVecs; i += 128) {
+    const int rr = i / kPadVecs, c = (i % kPadVecs) * 8;
+    // rows past the end, and the padding columns hd..kPad, read row 0 and
+    // are zeroed: a select, not a branch
+    const bool ok = wrow0 + rr < n_rows && c < HD;
     uint4 val = *reinterpret_cast<const uint4*>(
-        q + (ok ? q_offset(d, b, g, wrow0 + rr, HD) : 0) + c);
+        q + (ok ? q_offset(d, b, g, wrow0 + rr, HD) + c : 0));
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -483,9 +539,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // partial sums over this thread's columns
-  float acc[HD / 2];
+  float acc[kPad / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kPad / 2; ++i) acc[i] = 0.f;
   float s[kKeys / 2];
   uint32_t pa[kKeys / 16][4];  // bf16(p) of the previous tile, A fragments
   const uint32_t q_addr = smem_addr(sQw);
@@ -494,7 +550,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
   auto issue_qk = [&](int t) {
     const uint32_t k_addr = smem_addr(sK + (t % kStages) * T::kTileBytes);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < kPad / 16; ++kk) {
       const uint32_t sub = kk / (kCols / 16), off = (kk % (kCols / 16)) * 32;
       wgmma_ss_n128(
           s,
@@ -512,7 +568,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
     const uint32_t v_addr = smem_addr(sV + (t % kStages) * T::kTileBytes);
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_rs<HD>(acc, pa[kk],
+      wgmma_rs<kPad>(acc, pa[kk],
                    gmma_desc(v_addr + kk * 16 * kRowBytes, T::kColBlockBytes,
                              8 * kRowBytes, T::kLayout));
     wgmma_commit();
@@ -610,7 +666,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
     fence_regs(acc);
     mbar_arrive_if(empty((t - 1) % kStages), lane == 0);
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
+    for (int dt = 0; dt < kPad / 8; ++dt) {
       acc[dt * 4 + 0] *= corr[0];
       acc[dt * 4 + 1] *= corr[0];
       acc[dt * 4 + 2] *= corr[1];
@@ -627,8 +683,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
   fence_regs(acc);
   mbar_arrive_if(empty((n_tiles - 1) % kStages), lane == 0);
 
-  // normalize into the warpgroup's q rows (swizzled), then store 16-byte
-  // vectors of whole rows
+  // normalize into the warpgroup's q rows (swizzled, padding columns
+  // included), then store 16-byte vectors of the real columns of each row
   named_barrier(1 + wg, 128);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -638,7 +694,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap k_map,
     lt = fmaxf(lt, 1e-30f);
     const int rr = 16 * w + grp + 8 * h;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
+    for (int dt = 0; dt < kPad / 8; ++dt) {
       const int c = dt * 8 + tig * 2;
       *reinterpret_cast<uint32_t*>(
           sQw + (c / kCols) * (kWgRows * kRowBytes) +
@@ -672,7 +728,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Dims d) {
   constexpr int kQs = HD + 1;  // padded: lanes on different rows, other banks
-  constexpr int kCols = HD / 32;
+  // output columns lane, lane + 32, ... of each row: ceil(hd / 32) of them,
+  // the last one only on lanes below hd % 32 where 32 does not divide hd
+  constexpr int kCols = (HD + 31) / 32;
   extern __shared__ float smem_f32[];
   float* sQ = smem_f32;                    // kRows x kQs, scaled q
   float* sK = sQ + kRows * kQs;        // kKeysF32 x kQs
@@ -680,6 +738,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* sP = sV + kKeysF32 * HD;      // kRows x kKeysF32, p of each warp
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto has_col = [&](int c) { return HD % 32 == 0 || lane + 32 * c < HD; };
   const int g = blockIdx.y, b = blockIdx.z;
   const int64_t n_rows = static_cast<int64_t>(d.Sq) * d.R;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
@@ -749,7 +808,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kKeysF32; ++j) {
       float vv[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = sV[j * HD + lane + 32 * c];
+      for (int c = 0; c < kCols; ++c)
+        vv[c] = has_col(c) ? sV[j * HD + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
         const float p = sP[(wr + r) * kKeysF32 + j];
@@ -770,7 +830,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= n_rows) continue;
     float* dst = o + q_offset(d, b, g, row, HD) + lane;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[32 * c] = acc[r][c] / lt;
+    for (int c = 0; c < kCols; ++c)
+      if (has_col(c)) dst[32 * c] = acc[r][c] / lt;
   }
 }
 
@@ -804,7 +865,9 @@ cudaError_t encoder(EncodeTiled* fn) {
 }
 
 // The 4-D map (hd, G, Sk, B) over a contiguous (B, Sk, G, hd) bf16 tensor,
-// with a box of (min(hd, 64), 1, kKeys, 1) swizzled as the kernel reads it.
+// with a box of (one column block, 1, kKeys, 1) swizzled as the kernel reads
+// it.  The inner dim is the real hd: at hd 80 the third box of a tile
+// reaches past it, and TMA fills columns 80-95 with zeros.
 template <int HD>
 cudaError_t kv_map(CUtensorMap* map, const void* ptr, const Dims& d) {
   EncodeTiled encode;
@@ -873,8 +936,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (B, Sq, G, R, hd); k, v: (B, Sk, G, hd); o: q's shape.  All contiguous,
-// 16-byte aligned, on `device`, bf16 (`is_bf16`) or float32; hd is 32, 64 or
-// 128.  Launches on `stream` and does not synchronise.  Returns the CUDA
+// 16-byte aligned, on `device`, bf16 (`is_bf16`) or float32; hd is 32, 64,
+// 80 or 128.  Launches on `stream` and does not synchronise.  Returns the CUDA
 // error code of selecting the device, of encoding the bf16 path's tensor
 // maps, of the launch, or cudaErrorInvalidValue for a shape it does not take
 // (0 on success).
@@ -892,6 +955,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   switch (hd) {
     case 32: err = launch<32>(q, k, v, o, is_bf16 != 0, d, st); break;
     case 64: err = launch<64>(q, k, v, o, is_bf16 != 0, d, st); break;
+    case 80: err = launch<80>(q, k, v, o, is_bf16 != 0, d, st); break;
     case 128: err = launch<128>(q, k, v, o, is_bf16 != 0, d, st); break;
     default: err = cudaErrorInvalidValue;
   }

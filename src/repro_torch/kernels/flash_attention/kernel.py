@@ -3,13 +3,14 @@
 Port of the TPU kernel ``flash_attention_fwd`` (``_flash_kernel``,
 src/repro/kernels/flash_attention/kernel.py).  The kernel is
 ``csrc/flash_attention.cu`` (see the note in the source).  In bf16, one
-block per (batch, KV group, 192 flattened q*R rows; 128 at hd 128): a
-producer warp streams key and value tiles by TMA into a ring of
+block per (batch, KV group, 192 flattened q*R rows; 128 at hd 80 and
+128): a producer warp streams key and value tiles by TMA into a ring of
 shared-memory stages, each tile serving all R heads of the group, and
-consumer warpgroups run both products with ``wgmma``; the tensor maps
-are encoded on the host each call (``cuTensorMapEncodeTiled``, reached
-through ``cudaGetDriverEntryPoint``).  In float32, CUDA-core
-FMAs (the tensor cores would round to TF32).  Unlike the TPU kernel it
+consumer warpgroups run both products with ``wgmma`` (hd 80 padded to 96
+columns in shared memory, TMA's zero fill supplying the padding); the
+tensor maps are encoded on the host each call (``cuTensorMapEncodeTiled``,
+reached through ``cudaGetDriverEntryPoint``).  In float32, CUDA-core FMAs
+(the tensor cores would round to TF32).  Unlike the TPU kernel it
 masks ragged Sq and Sk itself, so every prompt length runs.
 
 ``flash_attention_fwd`` takes CUDA tensors only and launches the kernel
@@ -28,7 +29,7 @@ from repro_torch.kernels._build import load_library
 
 __all__ = ["HEAD_DIMS", "check_inputs", "flash_attention_fwd"]
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -69,7 +70,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, G, R, hd); k, v: (B, Sk, G, hd), CUDA tensors of one
-    dtype (float32 or bfloat16), hd in {32, 64, 128} -> (B, Sq, G, R, hd)
+    dtype (float32 or bfloat16), hd in {32, 64, 80, 128} -> (B, Sq, G, R, hd)
     in q's dtype.  ``flash_attention_fwd.launches`` counts the kernel's
     launches."""
     check_inputs(q, k, v)

@@ -1,9 +1,11 @@
-"""Model assembly for the dense, moe, vlm and ssm families.
+"""Model assembly for the dense, moe, vlm, ssm and hybrid families.
 
 Port of ``repro.models.lm.Model`` for ``family`` "dense" (qwen2-style),
 "moe" (the dense layer with a Mixture-of-Experts MLP), "vlm" (the dense
-stack with image embeddings prepended) and "ssm" (Mamba-2); the other
-families raise ``NotImplementedError`` naming the slice that ports them.
+stack with image embeddings prepended), "ssm" (Mamba-2) and "hybrid"
+(zamba2: groups of ``hybrid_period`` Mamba-2 layers, each group followed
+by one shared attention + MLP block, the same parameters in every group);
+"encdec" raises ``NotImplementedError`` naming the slice that ports it.
 Same methods as the reference, on nested dicts of tensors::
 
   init(generator) -> params                 forward(params, batch) -> (logits, aux)
@@ -22,7 +24,7 @@ the cache to a jitted step).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,17 +38,23 @@ from . import moe as MOE
 Params = Dict[str, Any]
 
 # the slice of the port that brings each family not yet ported
-_UNPORTED = {"hybrid": "slice 8c-ii", "encdec": "slice 8c-ii"}
+_UNPORTED = {"encdec": "slice 8c-ii(a)"}
+_PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _check_family(cfg) -> None:
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is "
-            f"not ported yet ({_UNPORTED[cfg.family]}); 'dense', 'moe', "
-            "'vlm' and 'ssm' are")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+            f"not ported yet ({_UNPORTED[cfg.family]}); "
+            + ", ".join(repr(f) for f in _PORTED) + " are")
+    if cfg.family not in _PORTED:
         raise ValueError(cfg.family)
+    if cfg.family == "hybrid" and (
+            cfg.hybrid_period <= 0 or cfg.num_layers % cfg.hybrid_period):
+        # the reference reshapes the layer stack into whole groups
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not form "
+                         f"groups of hybrid_period {cfg.hybrid_period}")
 
 
 def _stacked(layout, n: int):
@@ -56,12 +64,18 @@ def _stacked(layout, n: int):
 
 
 def layer_layout(cfg) -> L.Layout:
-    """One layer's parameters: the reference's ``_init_layer`` (dense, moe,
-    vlm: "moe" in place of "mlp" for the moe family) or
-    ``_init_ssm_layer`` (ssm) tree."""
-    if cfg.family == "ssm":
+    """One stacked layer's parameters: the reference's ``_init_layer``
+    (dense, moe, vlm: "moe" in place of "mlp" for the moe family) or
+    ``_init_ssm_layer`` (ssm, hybrid) tree."""
+    if cfg.family in ("ssm", "hybrid"):
         return {"ln": L.layout_norm(cfg.d_model, cfg.norm),
                 "ssm": M.layout_ssm(cfg)}
+    return dense_layout(cfg)
+
+
+def dense_layout(cfg) -> L.Layout:
+    """An attention + MLP (or MoE) layer: the reference's ``_init_layer``
+    tree, which is also the hybrid family's one ``shared`` block."""
     p = {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
          "attn": L.layout_attention(cfg),
          "ln2": L.layout_norm(cfg.d_model, cfg.norm)}
@@ -76,9 +90,12 @@ def param_layout(cfg) -> L.Layout:
     """Every parameter's (shape, init kind), layers stacked on axis 0: the
     reference's ``Model.init`` tree, shape for shape."""
     _check_family(cfg)
-    return {"embed": L.layout_embed(cfg),
-            "final_norm": L.layout_norm(cfg.d_model, cfg.norm),
-            "layers": _stacked(layer_layout(cfg), cfg.num_layers)}
+    p = {"embed": L.layout_embed(cfg),
+         "final_norm": L.layout_norm(cfg.d_model, cfg.norm),
+         "layers": _stacked(layer_layout(cfg), cfg.num_layers)}
+    if cfg.family == "hybrid":
+        p["shared"] = dense_layout(cfg)
+    return p
 
 
 def _layer(stacked: Params, i: int) -> Params:
@@ -93,7 +110,11 @@ class Model(nn.Module):
     vlm) full-sequence attention (``forward``, ``loss``, ``prefill``) through
     the flash-attention kernel, and the ssm family's full-sequence scan
     (``forward``, ``loss``; not ``prefill``, which needs the final state,
-    as in the reference) through the SSD chunk-scan kernel."""
+    as in the reference) through the SSD chunk-scan kernel.  The hybrid
+    family's ``forward`` and ``loss`` run both (each ssm layer's scan, and
+    the shared block's attention once a group); its ``prefill`` runs
+    neither, as the reference's (which calls the shared block's attention
+    without ``use_kernel``)."""
 
     def __init__(self, cfg, use_kernel: bool = False,
                  device: DeviceLike = "cuda"):
@@ -117,11 +138,26 @@ class Model(nn.Module):
         p["layers"] = L.init_from_layout(layer_layout(cfg), generator,
                                          self.device, self.param_dtype,
                                          lead=(cfg.num_layers,))
+        if cfg.family == "hybrid":
+            p["shared"] = L.init_from_layout(layout["shared"], generator,
+                                             self.device, self.param_dtype)
         return p
 
-    def _layers(self, params: Params) -> List[Params]:
-        return [_layer(params["layers"], i)
-                for i in range(self.cfg.num_layers)]
+    def _plan(self, params: Params) -> List[Tuple[str, int, Params, bool]]:
+        """The stack in run order: (kind "ssm" or "dense", cache index,
+        layer parameters, shared).  The hybrid family runs its one
+        ``shared`` block after every ``hybrid_period`` ssm layers, with
+        cache index g in group g (the reference's reshape of the stack into
+        groups); the same parameters serve every group."""
+        cfg = self.cfg
+        kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
+        plan = []
+        for i in range(cfg.num_layers):
+            plan.append((kind, i, _layer(params["layers"], i), False))
+            if cfg.family == "hybrid" and (i + 1) % cfg.hybrid_period == 0:
+                plan.append(("dense", i // cfg.hybrid_period,
+                             params["shared"], True))
+        return plan
 
     # ------------------------------------------------------------ forward
     def _embed_inputs(self, params: Params, batch):
@@ -159,12 +195,16 @@ class Model(nn.Module):
         return (L.apply_mlp(p_l["mlp"], h, self.cfg),
                 torch.zeros((), dtype=torch.float32, device=self.device))
 
-    def _dense_layer_fwd(self, p_l: Params, x: torch.Tensor, positions):
-        """Returns (x, (k, v), balance loss)."""
+    def _dense_layer_fwd(self, p_l: Params, x: torch.Tensor, positions,
+                         use_kernel: Optional[bool] = None):
+        """Returns (x, (k, v), balance loss).  The attention runs through
+        the kernel if ``use_kernel`` (default: the model's)."""
         cfg = self.cfg
+        if use_kernel is None:
+            use_kernel = self.use_kernel
         h = L.apply_norm(p_l["ln1"], x, cfg.norm)
         a, kv = L.apply_attention(p_l["attn"], h, cfg, positions,
-                                  use_kernel=self.use_kernel)
+                                  use_kernel=use_kernel)
         x = x + a
         h = L.apply_norm(p_l["ln2"], x, cfg.norm)
         m, aux = self._ffn(p_l, h)
@@ -181,8 +221,8 @@ class Model(nn.Module):
         cfg = self.cfg
         x, positions, mask, labels = self._embed_inputs(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for p_l in self._layers(params):
-            if cfg.family == "ssm":
+        for kind, _, p_l, _ in self._plan(params):
+            if kind == "ssm":
                 x = self._ssm_layer_fwd(p_l, x)
             else:
                 x, _, a = self._dense_layer_fwd(p_l, x, positions)
@@ -212,19 +252,26 @@ class Model(nn.Module):
     def init_cache(self, batch_size: int, max_len: int) -> Params:
         """The dense stack's (dense, moe, vlm) K/V cache (L, B, max_len, G,
         hd) in the compute dtype, or the ssm family's {"conv": (L, B, K-1, C),
-        "state": (L, B, H, P, N)} in float32 (``max_len`` unused)."""
+        "state": (L, B, H, P, N)} in float32 (``max_len`` unused).  The
+        hybrid family has both: the ssm cache of every layer, and K/V of
+        the shared block, one (B, max_len, G, hd) per group."""
         cfg = self.cfg
-        if cfg.family == "ssm":
+        cache: Params = {"len": 0}
+        if cfg.family in ("ssm", "hybrid"):
             one = M.init_ssm_cache(cfg, batch_size, self.device)
-            return {"len": 0, "ssm": {
+            cache["ssm"] = {
                 k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
                                dtype=v.dtype, device=self.device)
-                for k, v in one.items()}}
-        shape = (cfg.num_layers, batch_size, max_len, cfg.n_kv_heads,
+                for k, v in one.items()}
+        if cfg.family == "ssm":
+            return cache
+        n_kv = (cfg.num_layers // cfg.hybrid_period
+                if cfg.family == "hybrid" else cfg.num_layers)
+        shape = (n_kv, batch_size, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
-        return {"len": 0,
-                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        cache["k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        cache["v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return cache
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params: Params, batch, max_len: int):
@@ -236,17 +283,21 @@ class Model(nn.Module):
             raise ValueError(f"prefill: prompt of {s} tokens > max_len "
                              f"{max_len}")
         cache = self.init_cache(b, max_len)
-        for i, p_l in enumerate(self._layers(params)):
-            if cfg.family == "ssm":
+
+        for kind, i, p_l, shared in self._plan(params):
+            if kind == "ssm":
                 h = L.apply_norm(p_l["ln"], x, cfg.norm)
                 y, st = M.apply_ssm_prefill(p_l["ssm"], h, cfg)
-                x = x + y
                 for k, v in st.items():
                     cache["ssm"][k][i] = v
-                continue
-            x, (k, v), _ = self._dense_layer_fwd(p_l, x, positions)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+                x = x + y
+            else:
+                # the hybrid's shared block runs plain attention here, as
+                # the reference's hybrid prefill does
+                x, (k, v), _ = self._dense_layer_fwd(
+                    p_l, x, positions, use_kernel=False if shared else None)
+                cache["k"][i, :, :s] = k
+                cache["v"][i, :, :s] = v
         cache["len"] = s
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x[:, -1:, :], cfg)
@@ -263,19 +314,21 @@ class Model(nn.Module):
                              "positions is full")
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         x = L.apply_embed(params["embed"], tokens, cfg)
-        for i, p_l in enumerate(self._layers(params)):
-            if cfg.family == "ssm":
+
+        for kind, i, p_l, _ in self._plan(params):
+            if kind == "ssm":
                 h = L.apply_norm(p_l["ln"], x, cfg.norm)
                 y, _ = M.apply_ssm_decode(p_l["ssm"], h, cfg, {
                     k: v[i] for k, v in cache["ssm"].items()})
                 x = x + y
-                continue
-            h = L.apply_norm(p_l["ln1"], x, cfg.norm)
-            a, _ = L.apply_attention_decode(p_l["attn"], h, cfg,
-                                            cache["k"][i], cache["v"][i], pos)
-            x = x + a
-            h = L.apply_norm(p_l["ln2"], x, cfg.norm)
-            x = x + self._ffn(p_l, h)[0]
+            else:
+                h = L.apply_norm(p_l["ln1"], x, cfg.norm)
+                a, _ = L.apply_attention_decode(p_l["attn"], h, cfg,
+                                                cache["k"][i], cache["v"][i],
+                                                pos)
+                x = x + a
+                h = L.apply_norm(p_l["ln2"], x, cfg.norm)
+                x = x + self._ffn(p_l, h)[0]
         cache["len"] = pos + 1
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x, cfg)

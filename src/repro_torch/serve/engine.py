@@ -20,7 +20,11 @@ image prefix, the prompt and the new tokens.  For
 the ssm family (Mamba-2) ``use_kernel`` changes nothing here: it reaches
 only ``forward`` and ``loss``, while prefill runs the chunked scan (it
 needs the final state) and decode the one-step recurrence, so serving
-launches no SSD kernel, as in the reference.
+launches no SSD kernel, as in the reference.  Nor for the hybrid family
+(zamba2): its prefill runs the chunked scan and the shared block's plain
+attention, as the reference's does, so serving it launches no kernel at
+all.  Its cache (the ssm cache of every layer, the shared block's K/V of
+every group) is stacked on the batch axis like the others.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ class Request:
 def _stack(caches: List[dict]) -> dict:
     """Concatenate per-request caches on the batch axis (axis 1 of every
     cache tensor, at any depth of nesting: the ssm cache is
-    {"conv", "state"} under "ssm"); ``len`` is shared by the wave."""
+    {"conv", "state"} under "ssm", beside "k" and "v" for the hybrid
+    family); ``len`` is shared by the wave."""
     if len(caches) == 1:
         return caches[0]
     out = {}

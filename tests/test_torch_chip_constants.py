@@ -20,7 +20,9 @@ result floats as a sha256 digest, the floats one by one, the drift
 table; the digest is the script's own ``result_floats``).  The MoE and
 VLM phases' configurations and flash shapes are held to the reference's
 configs in this process (``repro.configs`` imports without jax's x64
-alias).
+alias), and so are the head_dim-80 phases' shapes and launch counts
+(stablelm-3b, zamba2-2.7b), with their kernels' bounds counted again here
+another way.
 """
 import ast
 import importlib.util
@@ -318,3 +320,89 @@ def test_moe_depth_cut_is_what_one_card_holds():
     for spec in (script.MOE_SERVE, script.VLM_SERVE):
         n, prompt, new, slots = spec
         assert n % slots == 0 and prompt == 128 and new == 16
+
+
+def test_head_dim_80_shapes_are_the_reference_configs():
+    """The head_dim-80 phases' shapes follow the reference's configs:
+    zamba2's loss (its shared block's 32 heads, one a KV group) and its
+    scan (80 heads of 64, N 64, chunk 256), stablelm-3b's served prompt,
+    and a ragged shape (Sq, Sk unequal, neither a multiple of the 128-key
+    tile)."""
+    from repro.configs import get_config as jget
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    script = _script()
+    z, st = jget(script.HYBRID_ARCH), jget(script.STABLELM_ARCH)
+    assert (z.family, st.family) == ("hybrid", "dense")
+    assert script.FLASH_HYBRID == (
+        script.HYBRID_B, script.HYBRID_S, z.n_kv_heads,
+        z.n_heads // z.n_kv_heads, z.resolved_head_dim) == (4, 2048, 32, 1,
+                                                            80)
+    assert script.FLASH_STABLELM == (
+        1, script.SERVE_PROMPT, st.n_kv_heads, st.n_heads // st.n_kv_heads,
+        st.resolved_head_dim) == (1, 128, 32, 1, 80)
+    assert script.SSD_HYBRID == (
+        script.HYBRID_B, script.HYBRID_S, z.ssm.n_heads(z.d_model),
+        z.ssm.head_dim, z.ssm.d_state, z.ssm.chunk_size) == (4, 2048, 80, 64,
+                                                             64, 256)
+    (b, sq, g, r, hd), sk = script.FLASH_RAGGED_80
+    assert hd == 80 and sq != sk and sq % 128 and sk % 128
+    assert 80 in HEAD_DIMS
+
+
+def test_new_launch_counts_follow_the_configs():
+    """zamba2's loss: the scan once an ssm layer, flash once a group of
+    ``hybrid_period``; stablelm-3b's serve run: flash once a layer a
+    prefill, one prefill a request."""
+    from repro.configs import get_config as jget
+    script = _script()
+    z, st = jget(script.HYBRID_ARCH), jget(script.STABLELM_ARCH)
+    assert script.HYBRID_LOSS_LAUNCHES == {
+        "ssd_scan": z.num_layers,
+        "flash_attention_fwd": z.num_layers // z.hybrid_period} == {
+        "ssd_scan": 54, "flash_attention_fwd": 9}
+    assert z.num_layers % z.hybrid_period == 0
+    n = script.SERVE_SPEC[0]
+    assert script.STABLELM_SERVE_LAUNCHES == st.num_layers * n == 256
+
+
+@pytest.mark.parametrize("which", ["zamba2 flash", "stablelm flash",
+                                   "zamba2 scan"])
+def test_head_dim_80_and_n_64_bounds(which):
+    """``flash_bound_ms`` and ``ssd_bound_ms`` at the new shapes against
+    the same bounds counted here another way: causal attention as
+    (S(S+1)/2 pairs) x (2 FLOPs a multiply-add) x (q.k and p.v) x hd per
+    head; the scan per chunk of Q positions as C B^T over Q(Q+1)/2 pairs
+    once per group, M x over those pairs and C h^T and x^T B over every
+    position per head; bytes each input read once and the output written
+    once.  The H100 SXM's data-sheet rates: 989e12 bf16 and 67e12 float32
+    FLOP/s, 3.35e12 B/s."""
+    import torch
+    script = _script()
+    bf16 = torch.bfloat16
+    if which.endswith("flash"):
+        shape = (script.FLASH_HYBRID if which.startswith("zamba2")
+                 else script.FLASH_STABLELM)
+        b, s, g, r, hd = shape
+        flops = b * g * r * (s * (s + 1) // 2) * 2 * 2 * hd
+        nbytes = 2 * (b * s * g * r * hd * 2 + b * s * g * hd * 2)
+        want = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        got, by = script.flash_bound_ms(shape, True, bf16)
+        assert got == pytest.approx(want, rel=1e-12)
+        if which.startswith("zamba2"):
+            assert (by, flops) == ("operations", 85_941_288_960)
+            assert got == pytest.approx(0.0869, abs=5e-5)
+        else:
+            assert by == "bytes"
+        return
+    b, s, h, p, n, chunk = script.SSD_HYBRID
+    pairs = sum(m * (m + 1) // 2 for m in [chunk] * (s // chunk))
+    cb = b * 1 * pairs * 2 * n
+    rest = b * h * (pairs * 2 * p + s * 2 * (2 * n * p))
+    nbytes = (2 * b * s * h * p + 2 * b * s * n) * 2 + 4 * (b * s * h + h)
+    want = max(cb / 989e12 + rest / 67e12, nbytes / 3.35e12) * 1e3
+    got, by, got_cb, got_rest, got_bytes = script.ssd_bound_ms(
+        script.SSD_HYBRID, bf16, 1)
+    assert (got_cb, got_rest, got_bytes) == (cb, rest, nbytes)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert by == "operations" and rest == 21_516_779_520
+    assert got == pytest.approx(0.321, abs=5e-4)

@@ -3,9 +3,11 @@ MoE routing record/replay (``RoutingLog``), the residual-stream
 record/replay (``StreamLog``), the float32 flash element bound
 (``f32_excess``), the teacher-forced comparison (``scored_phase``), and
 the served-token comparison (``plain_serve``'s per-step logits, its
-schedule check, and ``compare_served``'s near-tie gate).  These run on the
-card around the kernels; here the attention runs through its plain
-version."""
+schedule check, and ``compare_served``'s near-tie gate), and the zamba2
+loss phase (``hybrid_run``'s instruments, ``hybrid_loss_phase``'s gates
+and launch counts) and serve phase on the reduced hybrid model.  These
+run on the card around the kernels; here each kernel's plain version
+runs in its place."""
 import dataclasses
 import importlib.util
 import math
@@ -273,3 +275,100 @@ def test_scored_phase_fails_a_kernel_one_percent_off(cs, monkeypatch, arch):
     cfg, params, tokens, image = _scored(arch)
     with pytest.raises(cs.SmokeFailure, match="gap|bound"):
         cs.scored_phase(torch.device("cpu"), cfg, params, tokens, 4, image)
+
+
+@pytest.fixture
+def hybrid(cs, monkeypatch):
+    """Reduced zamba2 at head_dim 80 (4 ssm layers in 2 groups) with the
+    phase cut to its size, and each kernel's plain version standing in for
+    it through the entry point the model calls, counting a launch as the
+    kernel's wrapper does."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cs, "HYBRID_B", 2)
+    monkeypatch.setattr(cs, "HYBRID_S", 64)
+    monkeypatch.setattr(cs, "HYBRID_LOSS_LAUNCHES",
+                        {"ssd_scan": 4, "flash_attention_fwd": 2})
+    real_fa, real_ssd = fa_ops.flash_attention, ssd_ops.ssd
+
+    def fa(q, k, v, causal=True):
+        flash_attention_fwd.launches += 1
+        return real_fa(q, k, v, causal=causal)
+
+    def ssd(*args, **kwargs):
+        ssd_scan.launches += 1
+        return real_ssd(*args, **kwargs)
+    monkeypatch.setattr(fa_ops, "flash_attention", fa)
+    monkeypatch.setattr(ssd_ops, "ssd", ssd)
+    cfg = reduced(get_config("zamba2-2.7b"), head_dim=80)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    return cfg, params
+
+
+def test_hybrid_loss_phase_passes_the_plain_versions(cs, hybrid):
+    """Every gate of the zamba2 loss phase passes with the kernels' plain
+    versions, and each planted fault reads above its kernel's limits and
+    within the other's (the phase checks both), in float32 and bfloat16;
+    the launches are one scan an ssm layer and one flash call a group."""
+    cfg, params = hybrid
+    launches = cs.hybrid_loss_phase(torch.device("cpu"), cfg, params)
+    assert launches == {"ssd_scan": 4, "flash_attention_fwd": 2}
+
+
+@pytest.mark.parametrize("kernel", ["ssd", "flash_attention"])
+def test_hybrid_loss_phase_fails_a_kernel_one_percent_off(cs, hybrid,
+                                                          monkeypatch,
+                                                          kernel):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    module = ssd_ops if kernel == "ssd" else fa_ops
+    inner = getattr(module, kernel)
+    monkeypatch.setattr(module, kernel,
+                        lambda *args, **kwargs: inner(*args, **kwargs) * 1.01)
+    cfg, params = hybrid
+    with pytest.raises(cs.SmokeFailure, match="kernel reads|differ"):
+        cs.hybrid_loss_phase(torch.device("cpu"), cfg, params)
+
+
+def test_hybrid_loss_phase_counts_launches(cs, hybrid, monkeypatch):
+    """A scan that does not reach the kernel (its launch uncounted) fails
+    the phase."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    monkeypatch.setattr(ssd_ops, "ssd", ssd_scan_ref)
+    cfg, params = hybrid
+    with pytest.raises(cs.SmokeFailure, match="launches"):
+        cs.hybrid_loss_phase(torch.device("cpu"), cfg, params)
+
+
+def test_hybrid_run_is_the_unhooked_run_bit_for_bit(cs, hybrid):
+    """The phase's instruments (every scan and flash call also run through
+    its plain version, every flash call held to its float64 bound) leave
+    the float32 run unchanged: the logits and loss equal those of the
+    model run bare, and each instrument reads one value a call."""
+    cfg, params = hybrid
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg, use_kernel=True, device="cpu")
+    batch = _batch(cfg, s=64)
+    with torch.inference_mode():
+        want = model.forward(params, batch)[0]
+    loss = model.loss(params, batch)[0]
+    logits, got_loss, scans, attn, excess = cs.hybrid_run(model, params,
+                                                          batch)
+    assert torch.equal(logits, want) and torch.equal(got_loss, loss)
+    assert (len(scans), len(attn), len(excess)) == (4, 2, 2)
+    assert max(excess) <= 1.0
+
+
+def test_hybrid_serve_phase_launches_no_kernel(cs, hybrid):
+    """zamba2's engine with ``use_kernel`` (the default) serves with no
+    launch, as the reference's (its prefill runs plain attention and the
+    chunked scan), and its tokens equal the plain engine's in float32 and
+    bfloat16."""
+    cfg, params = hybrid
+    assert cs.serve_phase(torch.device("cpu"), cfg, params,
+                          (4, 12, 5, 4)) == 0

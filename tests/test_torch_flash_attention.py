@@ -6,8 +6,10 @@ and ``attention_ref`` are held against the reference's Pallas kernel run
 in interpret mode, at tests/test_kernels.py's shapes and tolerances:
 2e-5 in float32 (summation order), 2e-2 in bfloat16 (the kernel rounds p
 to bf16 before the P.V product, the plain version the normalized
-probabilities).  A ragged length (S = 200), which the Pallas kernel
-asserts on, is held against the reference's ``attention_ref``.  The CUDA
+probabilities), and at two head_dim-80 shapes (stablelm-3b's and zamba2's
+head dim: 32 heads a KV group of 1, and GQA).  A ragged length (S = 200),
+which the Pallas kernel asserts on, is held against the reference's
+``attention_ref``.  The CUDA
 kernel itself runs only on the card (``-m cuda``).
 """
 import types
@@ -22,7 +24,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 
 # (B, S, G, R, hd): tests/test_kernels.py's shapes, then a ragged one
 SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
-          (1, 512, 4, 2, 128)]
+          (1, 512, 4, 2, 128), (1, 128, 32, 1, 80), (2, 256, 2, 3, 80)]
 RAGGED = (1, 200, 2, 7, 64)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PORT_FNS = {"attention_ref": attention_ref, "flash_attention": flash_attention}
@@ -121,9 +123,10 @@ def test_cuda_kernel_matches_plain_version(shape, causal, dtype):
 @pytest.mark.parametrize("sq,sk", [(300, 300), (77, 200), (200, 77)],
                          ids=lambda v: str(v))
 @pytest.mark.parametrize("r", [1, 7])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
 def test_cuda_bf16_kernel_ragged_lengths(hd, r, sq, sk, causal):
-    """The bf16 kernel (wgmma, TMA K/V ring) at every head dim, with R = 1
+    """The bf16 kernel (wgmma, TMA K/V ring) at every head dim (hd 80 padded
+    to 96 columns in shared memory), with R = 1
     and R = 7 query heads a group, ragged Sq and Sk (none a multiple of the
     128-key tile, Sq != Sk either way): against the plain version."""
     if not torch.cuda.is_available():
@@ -141,3 +144,26 @@ def test_cuda_bf16_kernel_ragged_lengths(hd, r, sq, sk, causal):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(300, 177), (77, 200)],
+                         ids=lambda v: str(v))
+def test_cuda_f32_kernel_covers_every_column_at_hd_80(sq, sk, causal):
+    """The float32 kernel gives each lane ceil(80 / 32) = 3 output columns,
+    the third only on lanes 0-15: every column of the output, 64-79
+    included, against the plain version (a dropped column would read 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(sq + sk)
+    q = torch.from_numpy(rng.standard_normal((2, sq, 2, 3, 80), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, sk, 2, 80), np.float32))
+            .cuda() for _ in range(2))
+    q = q.cuda()
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = (got - want).abs().amax(dim=(0, 1, 2, 3))
+    assert err.shape == (80,) and float(err.max()) <= TOL["float32"]
+    assert float(want[..., 64:].abs().max()) > 0.1

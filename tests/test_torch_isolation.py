@@ -105,6 +105,7 @@ def _entry_points():
     ssm = reduced(get_config("mamba2-780m"))
     moe = reduced(get_config("phi3.5-moe-42b-a6.6b"))
     vlm = reduced(get_config("llava-next-mistral-7b"))
+    hybrid = reduced(get_config("zamba2-2.7b"))
     step = get_workload("transformer").fastsim_model(
         get_platform("tpu-v5e-pod")).params
     region_cfg = HPLConfig(N=2048, nb=128, P=2, Q=2, lookahead=0)
@@ -133,6 +134,10 @@ def _entry_points():
         "ServeEngine_vlm": lambda: ServeEngine(vlm, {}),
         "lm_params_from_reference_vlm": lambda: lm_params_from_reference(
             _lm_tree(vlm), vlm),
+        "build_model_hybrid": lambda: build_model(hybrid),
+        "ServeEngine_hybrid": lambda: ServeEngine(hybrid, {}),
+        "lm_params_from_reference_hybrid": lambda: lm_params_from_reference(
+            _lm_tree(hybrid), hybrid),
         "fit_fastsim_params": lambda: fit_fastsim_params(
             [(cfg, 0.05)], prm, fields=("gemm_eff",), steps=1),
         "whatif_grid": lambda: whatif_grid(get_workload("hpl"), plat,
@@ -177,16 +182,19 @@ def _lm_tree(cfg):
 
 
 LM_ARCHS = {"": "qwen2-0.5b", "_ssm": "mamba2-780m",
-            "_moe": "phi3.5-moe-42b-a6.6b", "_vlm": "llava-next-mistral-7b"}
+            "_moe": "phi3.5-moe-42b-a6.6b", "_vlm": "llava-next-mistral-7b",
+            "_hybrid": "zamba2-2.7b"}
 
 
 @pytest.mark.parametrize("name", [
     "build_model", "ServeEngine", "lm_params_from_reference",
     "build_model_ssm", "ServeEngine_ssm", "lm_params_from_reference_ssm",
     "build_model_moe", "ServeEngine_moe", "lm_params_from_reference_moe",
-    "build_model_vlm", "ServeEngine_vlm", "lm_params_from_reference_vlm"])
+    "build_model_vlm", "ServeEngine_vlm", "lm_params_from_reference_vlm",
+    "build_model_hybrid", "ServeEngine_hybrid",
+    "lm_params_from_reference_hybrid"])
 def test_lm_entry_points_run_on_the_cpu_when_asked(name):
-    suffix = next(s for s in ("_ssm", "_moe", "_vlm", "")
+    suffix = next(s for s in ("_ssm", "_moe", "_vlm", "_hybrid", "")
                   if name.endswith(s))
     base = name.removesuffix(suffix)
     lm = reduced(get_config(LM_ARCHS[suffix]))
@@ -205,8 +213,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, name):
 
 
 def test_unported_paths_name_their_slice():
-    """What is still unported names the slice that owns it (the hybrid
-    and encdec models, slice 8c-ii); the paths ported since run: the DES
+    """What is still unported names the slice that owns it (the encdec
+    models, slice 8c-ii(a)); the paths ported since run: the DES
     (slice 4), representative regions (``regions=``, slice 6) and fault
     scenarios on the fast model (slice 5)."""
     plat = get_platform("bdw-local")
@@ -224,8 +232,8 @@ def test_unported_paths_name_their_slice():
     assert out["events"] < 10597
     model = wl.fastsim_model(plat, faults={"faults": []})
     assert model.params == plat.fastsim()
-    with pytest.raises(NotImplementedError, match="slice 8c-ii"):
-        build_model(get_config("zamba2-2.7b"), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"slice 8c-ii\(a\)"):
+        build_model(get_config("whisper-medium"), device="cpu")
     assert wl.des_ranks(plat) == HPLConfig(4096, 128, 4, 4).n_ranks
 
 

@@ -199,8 +199,7 @@ def test_plain_serve_engine_matches_reference(ref_params, ref_serve):
                                       want["warm"])
 
 
-@pytest.mark.parametrize("name,slice_", [
-    ("zamba2-2.7b", "slice 8c-ii"), ("whisper-medium", "slice 8c-ii")])
+@pytest.mark.parametrize("name,slice_", [("whisper-medium", "slice 8c-ii")])
 def test_unported_families_raise(name, slice_):
     cfg = reduced(get_config(name))
     with pytest.raises(NotImplementedError, match=slice_):

@@ -2,8 +2,9 @@
 reference.
 
 On the CPU, ``ops.ssd`` computes the plain version (``ssd_scan_ref``).
-At tests/test_kernels.py's four shapes it is held against the
-reference's Pallas kernel run in interpret mode and against the port's
+At tests/test_kernels.py's four shapes, and at zamba2-2.7b's P = 64,
+N = 64 and chunk 256, it is held against the reference's Pallas kernel
+run in interpret mode and against the port's
 ``ssd_ref_sequential`` (the exact recurrence), with the reference test's
 own limits: rtol 2e-4 / atol 2e-3 in float32 and rtol 5e-2 / atol 5e-1
 in bfloat16 (the cumulative decay exponent is summed in float32 over a
@@ -29,9 +30,12 @@ from repro_torch.kernels.ssd_scan import (ssd, ssd_ref_sequential, ssd_scan,
                                           ssd_scan_ref, ssd_split_ref)
 from repro_torch.models.mamba2 import ssd_chunked
 
-# (B, S, H, P, N, chunk): tests/test_kernels.py's shapes
+# (B, S, H, P, N, chunk): tests/test_kernels.py's shapes, then zamba2-2.7b's
+# P, N and chunk (N = 64: the kernel's 128-wide template, columns n >= 64
+# masked) over two chunks
 SHAPES = [(1, 64, 1, 8, 4, 16), (2, 128, 3, 16, 8, 32),
-          (1, 256, 2, 64, 16, 64), (1, 128, 2, 32, 128, 128)]
+          (1, 256, 2, 64, 16, 64), (1, 128, 2, 32, 128, 128),
+          (1, 512, 2, 64, 64, 256)]
 TOL = {"float32": (2e-4, 2e-3), "bfloat16": (5e-2, 5e-1)}   # rtol, atol
 PORT_FNS = {"ssd": ssd, "ssd_scan_ref": ssd_scan_ref}
 # (B, S, H, P, N, chunk) beyond SHAPES for the split decomposition: ragged
@@ -241,6 +245,7 @@ def test_kernel_wrapper_refuses_sizes_and_grad(monkeypatch, case):
 @pytest.mark.parametrize("shape", SHAPES + [(2, 100, 4, 32, 16, 256),
                                             (1, 300, 3, 64, 128, 256),
                                             (1, 256, 4, 64, 128, 256),
+                                            (2, 300, 4, 64, 64, 256),
                                             (1, 300, 2, 128, 128, 256),
                                             (2, 200, 2, 128, 128, 64)],
                          ids=lambda s: "x".join(map(str, s)))

@@ -72,6 +72,19 @@ after:
     the two-edition TOP500 study (``--limit 12 --max-ranks 256``: drift
     table within 1e-12, at most one fleet program per edition).  Each
     prints its host walls; no kernel of the port runs on these paths.
+  * The dry-run-record predictions and the fault-tolerance layer, on
+    synthetic records in the reference's schema (the repository holds
+    none) written under a temporary ``experiments/dryrun``:
+    ``predict_cell`` on five records (a train and a prefill kind, all five
+    collective ops), ``whatif`` with sec5's ICI, HBM and peak doublings
+    on qwen3-moe-235b-a22b, ``predict_cell_des`` on the 256-rank mesh at
+    full depth for qwen2-0.5b (train and prefill) and qwen3-moe-235b-a22b
+    (94 layers) and on the two-pod 512-rank mesh for qwen2-0.5b,
+    ``simulate_straggler_impact`` (a 3x-slow chip), ``simulate_fault_impact``
+    on fastsim (on the card) and on the DES (a fail-stop), and
+    ``restart_plan_for_faults``; every answer equal to the reference's
+    (the fastsim one within 1e-12), with its host wall and the DES's
+    events per second.  No kernel of the port runs on this path.
   * LM serving: ``ServeEngine`` on qwen2-0.5b at full width (24 layers,
     d_model 896, 14 query heads in 2 KV groups, vocab 151,936) with seeded
     random weights, 8 requests of 128 prompt tokens and 32 new tokens in
@@ -173,6 +186,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -594,6 +608,282 @@ REFERENCE_EDITION_STUDY = {
         7.92578125, 22400.0, 0.8263107054490368, 20903.023730860386,
         20148.302337663703, 3.828125, 21640.0, -0.03405620467373446, 21230.0,
         19978.38979255536, 11.140625, 21230.0, 0.0],
+}
+# ---- slice 8c-p (the dry-run-record predictions and the fault-tolerance
+# layer).  The repository holds no dry-run record and the port cannot
+# compile one yet, so the phase writes these synthetic records in the
+# reference's schema (launch/dryrun.py: per-cell totals over all chips,
+# ring wire bytes per collective op) into a temporary directory:
+# (a) the record of tests/test_system.py:124-130; (b) qwen2-0.5b's train
+# cell on one pod and on two, with an all-reduce (the gradient, split
+# between the layers and the tail), an all-gather and a reduce-scatter;
+# (c) qwen3-moe-235b-a22b's train cell, which benchmarks/sec5_whatif.py
+# asks for, at all 94 layers, with the experts' all-to-all; (d) a
+# qwen2-0.5b prefill cell (no tail: its all-reduce stays in the layers)
+# with a collective-permute.  Totals are of the order 6 N T (train) or
+# 2 N T (prefill) for the shape's 1,048,576 tokens; they need only be
+# the same on both sides.  As above, every REFERENCE_RECORD_* value is
+# the reference package's answer on these records and
+# tests/test_torch_chip_constants.py holds these copies to it.
+DRYRUN_RECORDS = {
+    "x__train_4k__16x16": {
+        "arch": "x", "shape": "train_4k", "mesh": "16x16", "chips": 256,
+        "kind": "train",
+        "roofline": {"hlo_flops_total": 2.56e17, "hlo_bytes_total": 2.56e14},
+        "collectives": {"all-reduce": {"count": 10, "wire_bytes": 1e9}}},
+    "qwen2-0.5b__train_4k__16x16": {
+        "arch": "qwen2-0.5b", "shape": "train_4k", "mesh": "16x16",
+        "chips": 256, "kind": "train",
+        "roofline": {"hlo_flops_total": 4.2e15, "hlo_bytes_total": 3.0e14},
+        "collectives": {
+            "all-reduce": {"count": 48, "wire_bytes": 3.9e9},
+            "all-gather": {"count": 96, "wire_bytes": 1.2e9},
+            "reduce-scatter": {"count": 48, "wire_bytes": 1.2e9}}},
+    "qwen2-0.5b__train_4k__2x16x16": {
+        "arch": "qwen2-0.5b", "shape": "train_4k", "mesh": "2x16x16",
+        "chips": 512, "kind": "train",
+        "roofline": {"hlo_flops_total": 4.2e15, "hlo_bytes_total": 3.0e14},
+        "collectives": {
+            "all-reduce": {"count": 48, "wire_bytes": 3.9e9},
+            "all-gather": {"count": 96, "wire_bytes": 1.2e9},
+            "reduce-scatter": {"count": 48, "wire_bytes": 1.2e9}}},
+    "qwen3-moe-235b-a22b__train_4k__16x16": {
+        "arch": "qwen3-moe-235b-a22b", "shape": "train_4k", "mesh": "16x16",
+        "chips": 256, "kind": "train",
+        "roofline": {"hlo_flops_total": 1.5e17, "hlo_bytes_total": 2.0e16},
+        "collectives": {"all-reduce": {"count": 188, "wire_bytes": 2.0e10},
+                        "all-to-all": {"count": 376, "wire_bytes": 6.0e10}}},
+    "qwen2-0.5b__prefill_32k__16x16": {
+        "arch": "qwen2-0.5b", "shape": "prefill_32k", "mesh": "16x16",
+        "chips": 256, "kind": "prefill",
+        "roofline": {"hlo_flops_total": 2.5e15, "hlo_bytes_total": 1.0e14},
+        "collectives": {
+            "all-reduce": {"count": 48, "wire_bytes": 2.0e9},
+            "collective-permute": {"count": 24, "wire_bytes": 2.5e8}}},
+}
+# the three what-ifs of benchmarks/sec5_whatif.py:47-49 on (c); the DES
+# cells (each a 256- or 512-rank mesh at the arch's full depth); sec5's
+# straggler call; tests/test_faults.py:374-386's two fault-impact calls
+# (the fastsim one on the default transformer, a fail-stop on the DES)
+# and :390-393's restart scenario
+RECORD_WHATIF_CELL = ("qwen3-moe-235b-a22b", "train_4k", "16x16")
+RECORD_WHATIF = {"ici_x2": {"link_bw_scale": 2.0},
+                 "hbm_x2": {"hbm_bw_scale": 2.0},
+                 "peak_x2": {"peak_scale": 2.0}}
+RECORD_DES = [("qwen2-0.5b", "train_4k", "16x16"),
+              ("qwen2-0.5b", "train_4k", "2x16x16"),
+              ("qwen3-moe-235b-a22b", "train_4k", "16x16"),
+              ("qwen2-0.5b", "prefill_32k", "16x16")]
+RECORD_STRAGGLER = {"arch": "qwen2-0.5b", "shape": "train_4k",
+                    "slowdown": 3.0}
+FAULT_IMPACT = {
+    "fastsim": {"workload": {}, "platform": "tpu-v5e-pod", "des": False,
+                "faults": {"seed": 0, "name": "", "faults": [
+                    {"kind": "straggler", "start": 0.0, "duration": 0.0,
+                     "rank": 0, "node": -1, "link_frac": 0.0, "factor": 3.0,
+                     "period": 0.0, "duty": 0.5, "cycles": 0,
+                     "sigma": 0.0}]}},
+    "fail_stop": {"workload": {"mesh": [2, 4], "num_layers": 3},
+                  "platform": "tpu-v5e-pod", "des": True,
+                  "faults": {"seed": 0, "name": "", "faults": [
+                      {"kind": "fail_stop", "start": 0.0, "duration": 0.0,
+                       "rank": 3, "node": -1, "link_frac": 0.0,
+                       "factor": 1.0, "period": 0.0, "duty": 0.5,
+                       "cycles": 0, "sigma": 0.0}]}},
+}
+RESTART_SCENARIO = {
+    "faults": {"seed": 0, "name": "", "faults": [
+        {"kind": "fail_stop", "start": 0.0, "duration": 0.0, "rank": 18,
+         "node": -1, "link_frac": 0.0, "factor": 1.0, "period": 0.0,
+         "duty": 0.5, "cycles": 0, "sigma": 0.0},
+        {"kind": "fail_stop", "start": 0.0, "duration": 0.0, "rank": -1,
+         "node": 1, "link_frac": 0.0, "factor": 1.0, "period": 0.0,
+         "duty": 0.5, "cycles": 0, "sigma": 0.0}]},
+    "global_batch": 1792, "resume_step": 500, "old_mesh": [16, 16],
+    "ranks_per_node": 4}
+# The reference's answers: predict_cell's StepPrediction on every record
+# (as dataclasses.asdict), whatif's what-if part (its baseline and
+# baseline_s are RECORD_WHATIF_CELL's predict_cell answer and step_s, so
+# record_phase adds them from REFERENCE_RECORD_PREDICT), the DES results,
+# the straggler what-if (its baseline_s is REFERENCE_RECORD_DES's 16x16
+# cell's step_s, which record_phase adds),
+# both fault impacts (the fail-stop one's blowup is inf, checked apart)
+# and the restart plan.
+REFERENCE_RECORD_PREDICT = {
+    "x__train_4k__16x16": {
+        "compute_s": 5.640157924421884,
+        "memory_s": 0.4788240082357729,
+        "collective_s": 0.011141111111111112,
+        "step_s": 5.643500257755218,
+        "bound_s": 5.640157924421884,
+        "breakdown": {
+            "all-reduce": 0.011141111111111112,
+            "compute": 5.640157924421884,
+            "memory": 0.4788240082357729,
+        },
+    },
+    "qwen2-0.5b__train_4k__16x16": {
+        "compute_s": 0.09253384094754653,
+        "memory_s": 0.5611218846512964,
+        "collective_s": 0.07006000000000001,
+        "step_s": 0.5821398846512964,
+        "bound_s": 0.5611218846512964,
+        "breakdown": {
+            "all-reduce": 0.04336333333333334,
+            "all-gather": 0.013348333333333334,
+            "reduce-scatter": 0.013348333333333334,
+            "compute": 0.09253384094754653,
+            "memory": 0.5611218846512964,
+        },
+    },
+    "qwen2-0.5b__train_4k__2x16x16": {
+        "compute_s": 0.04626692047377327,
+        "memory_s": 0.2805609423256482,
+        "collective_s": 0.07006000000000001,
+        "step_s": 0.3015789423256482,
+        "bound_s": 0.2805609423256482,
+        "breakdown": {
+            "all-reduce": 0.04336333333333334,
+            "all-gather": 0.013348333333333334,
+            "reduce-scatter": 0.013348333333333334,
+            "compute": 0.04626692047377327,
+            "memory": 0.2805609423256482,
+        },
+    },
+    "qwen3-moe-235b-a22b__train_4k__16x16": {
+        "compute_s": 3.3047800338409474,
+        "memory_s": 37.408125643419766,
+        "collective_s": 0.8889338888888888,
+        "step_s": 37.67480581008643,
+        "bound_s": 37.408125643419766,
+        "breakdown": {
+            "all-reduce": 0.2222522222222222,
+            "all-to-all": 0.6666816666666666,
+            "compute": 3.3047800338409474,
+            "memory": 37.408125643419766,
+        },
+    },
+    "qwen2-0.5b__prefill_32k__16x16": {
+        "compute_s": 0.05507966723068246,
+        "memory_s": 0.1870406282170988,
+        "collective_s": 0.025031,
+        "step_s": 0.1945499282170988,
+        "bound_s": 0.1870406282170988,
+        "breakdown": {
+            "all-reduce": 0.022252222222222222,
+            "collective-permute": 0.002778777777777778,
+            "compute": 0.05507966723068246,
+            "memory": 0.1870406282170988,
+        },
+    },
+}
+REFERENCE_RECORD_WHATIF = {
+    "ici_x2": {
+        "whatif_s": 37.5414724767531,
+        "speedup": 1.0035516276943026,
+        "whatif": {
+            "compute_s": 3.3047800338409474,
+            "memory_s": 37.408125643419766,
+            "collective_s": 0.4444894444444444,
+            "step_s": 37.5414724767531,
+            "bound_s": 37.408125643419766,
+            "breakdown": {
+                "all-reduce": 0.11114111111111111,
+                "all-to-all": 0.3333483333333333,
+                "compute": 3.3047800338409474,
+                "memory": 37.408125643419766,
+            },
+        },
+    },
+    "hbm_x2": {
+        "whatif_s": 18.97074298837655,
+        "speedup": 1.9859425555008539,
+        "whatif": {
+            "compute_s": 3.3047800338409474,
+            "memory_s": 18.704062821709883,
+            "collective_s": 0.8889338888888888,
+            "step_s": 18.97074298837655,
+            "bound_s": 18.704062821709883,
+            "breakdown": {
+                "all-reduce": 0.2222522222222222,
+                "all-to-all": 0.6666816666666666,
+                "compute": 3.3047800338409474,
+                "memory": 18.704062821709883,
+            },
+        },
+    },
+    "peak_x2": {
+        "whatif_s": 37.67480581008643,
+        "speedup": 1.0,
+        "whatif": {
+            "compute_s": 1.6523900169204737,
+            "memory_s": 37.408125643419766,
+            "collective_s": 0.8889338888888888,
+            "step_s": 37.67480581008643,
+            "bound_s": 37.408125643419766,
+            "breakdown": {
+                "all-reduce": 0.2222522222222222,
+                "all-to-all": 0.6666816666666666,
+                "compute": 1.6523900169204737,
+                "memory": 37.408125643419766,
+            },
+        },
+    },
+}
+REFERENCE_RECORD_DES = {
+    "qwen2-0.5b__train_4k__16x16": {
+        "step_s": 0.7070018846512504,
+        "events": 1911520,
+        "min_finish": 0.7070018846512504,
+    },
+    "qwen2-0.5b__train_4k__2x16x16": {
+        "step_s": 1.0576398561523,
+        "events": 4883064,
+        "min_finish": 0.4265072914300458,
+    },
+    "qwen3-moe-235b-a22b__train_4k__16x16": {
+        "step_s": 39.20294342119574,
+        "events": 5545280,
+        "min_finish": 39.20294342119574,
+    },
+    "qwen2-0.5b__prefill_32k__16x16": {
+        "step_s": 0.24001662821708708,
+        "events": 970624,
+        "min_finish": 0.24001662821708708,
+    },
+}
+REFERENCE_RECORD_STRAGGLER = {
+    "straggler_s": 1.8292456539539146,
+    "blowup": 2.5873278327344833,
+    "verdict": "evict",
+}
+REFERENCE_RECORD_FAULTS = {
+    "fastsim": {
+        "baseline_s": 0.004003977542605753,
+        "faulted_s": 0.004258332627817259,
+        "backend": "fastsim",
+        "blowup": 1.0635256023553954,
+        "verdict": "tolerate",
+    },
+    "fail_stop": {
+        "baseline_s": 0.003094623472261704,
+        "faulted_s": 0.002612938850039482,
+        "backend": "des",
+        "failed": True,
+        "n_finished": 0,
+        "verdict": "restart",
+    },
+}
+REFERENCE_RECORD_PLAN = {
+    "old_mesh": (16, 16),
+    "new_mesh": (14, 16),
+    "resume_step": 500,
+    "dp_size_old": 16,
+    "dp_size_new": 14,
+    "per_device_batch_new": 128,
+    "notes": ("evicted dp rows [0, 1] (5 dead chips); same global "
+              "batch; data pipeline replays from resume_step with "
+              "dp_size_new shards; params re-sharded at restore"),
 }
 # Published HBM rate of one H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -1471,6 +1761,127 @@ def campaign_phase(dev):
           "reference's")
     check(all(c <= 1 for c in compiles.values()),
           f"campaign edition study: new bucket shapes {compiles}")
+
+
+def record_phase(dev):
+    """Slice 8c-p: the dry-run-record predictions and the fault-tolerance
+    layer on ``DRYRUN_RECORDS``, written in the reference's schema into
+    ``experiments/dryrun`` (the default ``DRYRUN_DIR``, relative to the
+    working directory) under a temporary directory.  ``predict_cell`` on
+    every record, sec5's three what-ifs, the full-depth DES cells, sec5's
+    straggler call, both fault impacts and the restart plan, each against
+    the reference's answer: equal (copied host Python), the fastsim fault
+    impact within 1e-12.  Only ``simulate_fault_impact`` takes ``dev``
+    (its fastsim backend); the rest runs on the host, as the reference's
+    does."""
+    from repro_torch.core import predict_cell, predict_cell_des, whatif
+    from repro_torch.faults import FaultSpec
+    from repro_torch.ft import (restart_plan_for_faults,
+                                simulate_fault_impact,
+                                simulate_straggler_impact)
+    from repro_torch.workloads import get_workload
+    t_phase = time.perf_counter()
+    des_events = des_wall = 0
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        root = os.path.join("experiments", "dryrun")
+        os.makedirs(root)
+        for name, rec in DRYRUN_RECORDS.items():
+            with open(os.path.join(root, name + ".json"), "w") as f:
+                json.dump(rec, f)
+
+        for name, want in REFERENCE_RECORD_PREDICT.items():
+            t0 = time.perf_counter()
+            got = dataclasses.asdict(predict_cell(*name.split("__")))
+            wall = time.perf_counter() - t0
+            print(f"predict_cell {name}: step_s={got['step_s']!r} "
+                  f"compute_s={got['compute_s']!r} memory_s="
+                  f"{got['memory_s']!r} collective_s="
+                  f"{got['collective_s']!r} equal={got == want} "
+                  f"host_wall_s={wall:.6f}", flush=True)
+            check(got == want, f"predict_cell {name}: {got} != the "
+                  f"reference's {want}")
+
+        base = REFERENCE_RECORD_PREDICT["__".join(RECORD_WHATIF_CELL)]
+        for key, kw in RECORD_WHATIF.items():
+            t0 = time.perf_counter()
+            w = whatif(*RECORD_WHATIF_CELL, **kw)
+            wall = time.perf_counter() - t0
+            got = dict(w, baseline=dataclasses.asdict(w["baseline"]),
+                       whatif=dataclasses.asdict(w["whatif"]))
+            want = dict(REFERENCE_RECORD_WHATIF[key],
+                        baseline_s=base["step_s"], baseline=base)
+            print(f"whatif {'__'.join(RECORD_WHATIF_CELL)} {key}: "
+                  f"baseline_s={got['baseline_s']!r} whatif_s="
+                  f"{got['whatif_s']!r} speedup={got['speedup']!r} "
+                  f"equal={got == want} host_wall_s={wall:.6f}", flush=True)
+            check(got == want, f"whatif {key}: {got} != the reference's "
+                  f"{want}")
+
+        for cell in RECORD_DES:
+            name = "__".join(cell)
+            want = REFERENCE_RECORD_DES[name]
+            t0 = time.perf_counter()
+            got = predict_cell_des(*cell)
+            wall = time.perf_counter() - t0
+            des_events += got["events"]
+            des_wall += wall
+            print(f"predict_cell_des {name}: step_s={got['step_s']!r} "
+                  f"min_finish={got['min_finish']!r} events="
+                  f"{got['events']} equal={got == want} host_wall_s="
+                  f"{wall:.3f} events_per_s={got['events'] / wall:,.0f}",
+                  flush=True)
+            check(got == want, f"predict_cell_des {name}: {got} != the "
+                  f"reference's {want}")
+
+        s = RECORD_STRAGGLER
+        t0 = time.perf_counter()
+        got = simulate_straggler_impact(s["arch"], s["shape"],
+                                        slowdown=s["slowdown"])
+        wall = time.perf_counter() - t0
+        want = dict(REFERENCE_RECORD_STRAGGLER, baseline_s=REFERENCE_RECORD_DES[
+            "__".join((s["arch"], s["shape"], "16x16"))]["step_s"])
+        print(f"simulate_straggler_impact {s}: {got} equal={got == want} "
+              f"host_wall_s={wall:.3f} (two DES runs)", flush=True)
+        check(got == want, f"simulate_straggler_impact: {got} != the "
+              f"reference's {want}")
+
+        for key, f in FAULT_IMPACT.items():
+            wl = get_workload("transformer", **{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in f["workload"].items()})
+            t0 = time.perf_counter()
+            got = simulate_fault_impact(wl, f["platform"],
+                                        FaultSpec.from_dict(f["faults"]),
+                                        des=f["des"], device=dev)
+            wall = time.perf_counter() - t0
+            want = REFERENCE_RECORD_FAULTS[key]
+            if f["des"]:
+                blowup = got.pop("blowup")
+                ok = got == want and blowup == math.inf
+                err = 0.0
+            else:
+                err = max(rel_err(got[k], want[k]) for k in want
+                          if isinstance(want[k], float))
+                ok = (got.keys() == want.keys() and err <= 1e-12
+                      and all(got[k] == want[k] for k in want
+                              if not isinstance(want[k], float)))
+            print(f"simulate_fault_impact {key}: {got} max_rel_err="
+                  f"{err:.3e} ok={ok} host_wall_s={wall:.3f}", flush=True)
+            check(ok, f"simulate_fault_impact {key}: {got} != the "
+                  f"reference's {want}")
+
+        r = RESTART_SCENARIO
+        plan = dataclasses.asdict(restart_plan_for_faults(
+            FaultSpec.from_dict(r["faults"]), global_batch=r["global_batch"],
+            resume_step=r["resume_step"], old_mesh=tuple(r["old_mesh"]),
+            ranks_per_node=r["ranks_per_node"]))
+        print(f"restart_plan_for_faults: {plan} "
+              f"equal={plan == REFERENCE_RECORD_PLAN}", flush=True)
+        check(plan == REFERENCE_RECORD_PLAN, f"restart plan: {plan} != the "
+              f"reference's {REFERENCE_RECORD_PLAN}")
+    print(f"record phase: host_wall_s={time.perf_counter() - t_phase:.3f} "
+          f"des_events={des_events} des_host_wall_s={des_wall:.3f} "
+          f"des_events_per_s={des_events / des_wall:,.0f}", flush=True)
 
 
 def network_phase(rates_k, pairs):
@@ -2561,25 +2972,40 @@ def faulty_scan(scan, fault):
 
 
 def ssd_pass_times(inputs, chunk):
-    """Each of the kernel's three passes' mean device time over 5 calls, by
-    kernel name, from torch.profiler."""
+    """Each of the kernel's three passes' mean device time, by kernel name,
+    from torch.profiler captures of 5 calls each.  On the H100 machine,
+    once a CPU + CUDA profile has run in the process (the bridge's and the
+    fleet's) and a minute or more has passed, a capture can lose whole
+    calls' kernel records (kineto's raw records lose them too), so records
+    are gathered over up to five captures until every pass has 5, and
+    each of the three passes must have 5 or more.  Returns the means and
+    the number of records each covers."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.ssd_scan import ssd_scan
     ssd_scan(*inputs, chunk)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            ssd_scan(*inputs, chunk)
-        torch.cuda.synchronize()
     times = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            name = next((n for n in ("chunk_state", "state_passing",
-                                     "chunk_scan") if n in e.name), e.name)
-            times.setdefault(name, []).append(e.time_range.elapsed_us())
-    check(len(times) == 3, f"ssd_scan passes: the profiler saw {sorted(times)}")
-    return {k: statistics.mean(v) * 1e-3 for k, v in times.items()}
+    for capture in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ssd_scan(*inputs, chunk)
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                name = next((n for n in ("chunk_state", "state_passing",
+                                         "chunk_scan") if n in e.name),
+                            e.name)
+                times.setdefault(name, []).append(e.time_range.elapsed_us())
+        if len(times) == 3 and min(map(len, times.values())) >= 5:
+            break
+    counts = {k: len(v) for k, v in times.items()}
+    print(f"ssd_scan passes: {capture} profiler captures of 5 calls, "
+          f"records per pass {counts}", flush=True)
+    check(len(times) == 3 and min(counts.values()) >= 5,
+          f"ssd_scan passes: the profiler saw {counts} records, not 5 of "
+          "each of the three passes")
+    return {k: statistics.mean(v) * 1e-3 for k, v in times.items()}, counts
 
 
 def ssd_phase(dev):
@@ -2637,12 +3063,12 @@ def ssd_phase(dev):
                     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by,
                            "library_ms": None}
-                passes = ssd_pass_times(inputs, chunk)
+                passes, counts = ssd_pass_times(inputs, chunk)
                 print(f"ssd_scan {model} {dtype} B/C shared by all "
-                      "heads, each pass's mean device ms (torch.profiler, 5 "
-                      "calls): " + ", ".join(f"{k}={v:.6f}"
-                                             for k, v in passes.items()),
-                      flush=True)
+                      "heads, each pass's mean device ms (torch.profiler, "
+                      "mean of the records counted): " + ", ".join(
+                          f"{k}={v:.6f} over {counts[k]}"
+                          for k, v in passes.items()), flush=True)
     return rec
 
 
@@ -3227,13 +3653,14 @@ def main() -> int:
     check(all(k.launches == 0 for k in counted),
           "a kernel of the port was launched on the DES/calibration path")
 
-    # ---- slices 5 to 7: the transformer step model, fault sweeps, a
-    # representative region, per-scale contention, the TOP500 fleet, the
-    # prediction service and the campaign layer (no kernel of the port's
+    # ---- slices 5 to 7 and 8c-p: the transformer step model, fault
+    # sweeps, a representative region, per-scale contention, the TOP500
+    # fleet, the prediction service, the campaign layer, the dry-run-record
+    # predictions and the fault-tolerance layer (no kernel of the port's
     # runs on these paths; the counts must stay 0)
     for phase in (transformer_phase, fault_phase, region_phase,
                   contention_phase, fleet_phase, predict_service_phase,
-                  campaign_phase):
+                  campaign_phase, record_phase):
         for kernel in counted:
             kernel.launches = 0
         phase(dev)

@@ -17,15 +17,22 @@ wave (times, ``stats`` and ``request_key`` digests through the
 reference's ``PredictionService``), its acceptance campaign and its
 two-edition TOP500 study (each ``campaign_run`` record apart from its
 result floats as a sha256 digest, the floats one by one, the drift
-table; the digest is the script's own ``result_floats``).  The MoE and
-VLM phases' configurations and flash shapes are held to the reference's
-configs in this process (``repro.configs`` imports without jax's x64
-alias), and so are the head_dim-80 phases' shapes and launch counts
-(stablelm-3b, zamba2-2.7b), with their kernels' bounds counted again here
-another way.
+table; the digest is the script's own ``result_floats``).  Slice
+8c-p's answers on the script's synthetic dry-run records
+(``DRYRUN_RECORDS``): ``predict_cell``, the three what-ifs, the
+full-depth DES cells, the straggler what-if, both fault impacts and the
+restart plan, equal (copied host Python; the fastsim fault impact within
+1e-13); these recompute about a minute of host DES, so they are marked
+``slow``.  The MoE and VLM phases' configurations and flash shapes are
+held to the reference's configs in this process (``repro.configs``
+imports without jax's x64 alias), and so are the head_dim-80 phases'
+shapes and launch counts (stablelm-3b, zamba2-2.7b), with their kernels'
+bounds counted again here another way.
 """
 import ast
 import importlib.util
+import json
+import math
 import os
 
 import pytest
@@ -140,6 +147,51 @@ OUT["study_runs"] = res.run_records
 OUT["study_drift"] = campaign_report(res.records)["drift"]
 """
 
+RECORD_CHILD = r"""
+import dataclasses, json, os, tempfile
+from repro.core.predict import predict_cell, predict_cell_des, whatif
+from repro.faults import FaultSpec
+from repro.ft import (restart_plan_for_faults, simulate_fault_impact,
+                      simulate_straggler_impact)
+from repro.workloads import get_workload
+
+C = PAYLOAD
+tmp = tempfile.mkdtemp()
+root = os.path.join(tmp, "experiments", "dryrun")
+os.makedirs(root)
+for name, rec in C["DRYRUN_RECORDS"].items():
+    with open(os.path.join(root, name + ".json"), "w") as f:
+        json.dump(rec, f)
+os.chdir(tmp)            # DRYRUN_DIR is experiments/dryrun, relative
+OUT["REFERENCE_RECORD_PREDICT"] = {
+    name: dataclasses.asdict(predict_cell(*name.split("__")))
+    for name in C["DRYRUN_RECORDS"]}
+OUT["REFERENCE_RECORD_WHATIF"] = {}
+for key, kw in C["RECORD_WHATIF"].items():
+    w = whatif(*C["RECORD_WHATIF_CELL"], **kw)
+    OUT["REFERENCE_RECORD_WHATIF"][key] = dict(
+        w, baseline=dataclasses.asdict(w["baseline"]),
+        whatif=dataclasses.asdict(w["whatif"]))
+OUT["REFERENCE_RECORD_DES"] = {"__".join(cell): predict_cell_des(*cell)
+                               for cell in C["RECORD_DES"]}
+s = C["RECORD_STRAGGLER"]
+OUT["REFERENCE_RECORD_STRAGGLER"] = simulate_straggler_impact(
+    s["arch"], s["shape"], slowdown=s["slowdown"])
+OUT["REFERENCE_RECORD_FAULTS"] = {}
+for key, f in C["FAULT_IMPACT"].items():
+    wl = get_workload("transformer", **{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in f["workload"].items()})
+    OUT["REFERENCE_RECORD_FAULTS"][key] = simulate_fault_impact(
+        wl, f["platform"], FaultSpec.from_dict(f["faults"]), des=f["des"])
+r = C["RESTART_SCENARIO"]
+OUT["REFERENCE_RECORD_PLAN"] = dataclasses.asdict(restart_plan_for_faults(
+    FaultSpec.from_dict(r["faults"]), global_batch=r["global_batch"],
+    resume_step=r["resume_step"], old_mesh=tuple(r["old_mesh"]),
+    ranks_per_node=r["ranks_per_node"]))
+os.chdir(os.path.dirname(tmp))
+"""
+
 INPUTS = ("STEP_PLATFORMS", "STEP_GRID_LANES", "FAULT_SPECS", "DES_CFG",
           "REGION", "CONTENTION_FIT")
 CONSTANTS = ("REFERENCE_STEP_S", "REFERENCE_STEP_GRID_S",
@@ -149,6 +201,12 @@ SERVE_INPUTS = ("SERVE_WAVE", "SERVE_KEY_RIDS", "CAMPAIGN_ACCEPT",
                 "EDITION_STUDY")
 SERVE_CONSTANTS = ("REFERENCE_SERVE", "REFERENCE_CAMPAIGN",
                    "REFERENCE_EDITION_STUDY")
+RECORD_INPUTS = ("DRYRUN_RECORDS", "RECORD_WHATIF_CELL", "RECORD_WHATIF",
+                 "RECORD_DES", "RECORD_STRAGGLER", "FAULT_IMPACT",
+                 "RESTART_SCENARIO")
+RECORD_CONSTANTS = ("REFERENCE_RECORD_PREDICT", "REFERENCE_RECORD_WHATIF",
+                    "REFERENCE_RECORD_DES", "REFERENCE_RECORD_STRAGGLER",
+                    "REFERENCE_RECORD_FAULTS", "REFERENCE_RECORD_PLAN")
 
 
 def _literal(node):
@@ -215,6 +273,17 @@ def serve_values():
     return script, ref
 
 
+@pytest.fixture(scope="module")
+def record_values():
+    """Slice 8c-p's constants, and the reference's answers on the same
+    records (the DES cells at full depth: ~55 s of host DES here)."""
+    script = _script_values(RECORD_INPUTS + RECORD_CONSTANTS)
+    assert set(script) == set(RECORD_INPUTS + RECORD_CONSTANTS), set(script)
+    ref = run_reference(RECORD_CHILD, {k: script[k] for k in RECORD_INPUTS},
+                        timeout=900)
+    return script, ref
+
+
 def _same(got, want, path=""):
     """Equal structure; ints, strings and DES marks exactly, other floats
     within RTOL."""
@@ -242,6 +311,69 @@ def test_reference_constant_matches_the_reference(values, name):
 def test_slice7_constant_matches_the_reference(serve_values, name):
     script, ref = serve_values
     _same(script[name], ref[name], name)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", RECORD_CONSTANTS)
+def test_record_constant_matches_the_reference(record_values, name):
+    """Copied host Python: equal.  The fastsim fault impact within RTOL;
+    the fail-stop one's blowup, which the script checks apart, is inf."""
+    script, ref = record_values
+    got, want = json.loads(json.dumps(script[name])), ref[name]
+    if name == "REFERENCE_RECORD_WHATIF":
+        # the script keeps each what-if's own part; its baseline is the
+        # cell's predict_cell answer, which it takes from that constant
+        base = ref["REFERENCE_RECORD_PREDICT"]["__".join(
+            script["RECORD_WHATIF_CELL"])]
+        want = {k: dict(w) for k, w in want.items()}
+        for w in want.values():
+            assert w.pop("baseline") == base
+            assert w.pop("baseline_s") == base["step_s"]
+    if name == "REFERENCE_RECORD_STRAGGLER":
+        s = script["RECORD_STRAGGLER"]
+        want = dict(want)
+        assert want.pop("baseline_s") == ref["REFERENCE_RECORD_DES"][
+            "__".join((s["arch"], s["shape"], "16x16"))]["step_s"]
+    if name == "REFERENCE_RECORD_FAULTS":
+        _same(got["fastsim"], want["fastsim"], name)
+        got, want = got["fail_stop"], dict(want["fail_stop"])
+        assert want.pop("blowup") == math.inf
+    assert got == want
+
+
+def test_records_cover_both_branches_and_every_collective():
+    """The synthetic records are the reference's schema and cover what
+    the record phase runs: (a) is tests/test_system.py:124-130's; qwen2's
+    train cell at one pod and two, with the all-reduce the gradient
+    split and two collectives in the layers; qwen3-moe's at its full 94
+    layers; a prefill (no tail); every op ``collective_time`` and the DES
+    price, between them."""
+    from repro.configs import get_config as jget
+    from repro.configs import get_shape as jshape
+    script = _script_values(RECORD_INPUTS)
+    recs = script["DRYRUN_RECORDS"]
+    assert recs["x__train_4k__16x16"] == {
+        "arch": "x", "shape": "train_4k", "mesh": "16x16", "chips": 256,
+        "kind": "train",
+        "roofline": {"hlo_flops_total": 2.56e17, "hlo_bytes_total": 2.56e14},
+        "collectives": {"all-reduce": {"count": 10, "wire_bytes": 1e9}}}
+    ops = set()
+    for name, rec in recs.items():
+        assert name == "__".join((rec["arch"], rec["shape"], rec["mesh"]))
+        assert rec["chips"] == 256 * (2 if rec["mesh"] == "2x16x16" else 1)
+        if rec["arch"] != "x":
+            assert rec["kind"] == jshape(rec["shape"]).kind
+        ops |= set(rec["collectives"])
+    assert ops == {"all-reduce", "all-gather", "reduce-scatter",
+                   "all-to-all", "collective-permute"}
+    cells = ["__".join(c) for c in script["RECORD_DES"]]
+    assert set(cells) == set(recs) - {"x__train_4k__16x16"}
+    assert {recs[c]["kind"] for c in cells} == {"train", "prefill"}
+    for mesh in ("16x16", "2x16x16"):
+        assert set(recs[f"qwen2-0.5b__train_4k__{mesh}"]["collectives"]) \
+            == {"all-reduce", "all-gather", "reduce-scatter"}
+    assert "__".join(script["RECORD_WHATIF_CELL"]) in cells
+    assert jget(script["RECORD_WHATIF_CELL"][0]).num_layers == 94
 
 
 def test_serve_wave_covers_both_families_a_fault_and_a_breakdown(

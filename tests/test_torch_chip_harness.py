@@ -5,9 +5,11 @@ record/replay (``StreamLog``), the float32 flash element bound
 the served-token comparison (``plain_serve``'s per-step logits, its
 schedule check, and ``compare_served``'s near-tie gate), and the zamba2
 loss phase (``hybrid_run``'s instruments, ``hybrid_loss_phase``'s gates
-and launch counts) and serve phase on the reduced hybrid model.  These
-run on the card around the kernels; here each kernel's plain version
-runs in its place."""
+and launch counts) and serve phase on the reduced hybrid model, and the
+dry-run-record phase (``record_phase``, host Python but for one fastsim
+call) passing and failing on a planted mismatch.  These run on the card
+around the kernels; here each kernel's plain version runs in its
+place."""
 import dataclasses
 import importlib.util
 import math
@@ -372,3 +374,29 @@ def test_hybrid_serve_phase_launches_no_kernel(cs, hybrid):
     cfg, params = hybrid
     assert cs.serve_phase(torch.device("cpu"), cfg, params,
                           (4, 12, 5, 4)) == 0
+
+
+def test_record_phase_passes_on_the_cpu(cs, monkeypatch, capsys):
+    """The dry-run-record phase on the CPU: every answer equals the
+    reference's constants.  Its DES cells are cut here to the prefill
+    record (~1M events); the straggler call still runs its two 256-rank
+    qwen2-0.5b DES runs."""
+    cell = ("qwen2-0.5b", "prefill_32k", "16x16")
+    assert cell in cs.RECORD_DES
+    monkeypatch.setattr(cs, "RECORD_DES", [cell])
+    cs.record_phase(torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert out.count("equal=True") == len(cs.DRYRUN_RECORDS) + len(
+        cs.RECORD_WHATIF) + 3
+    assert "equal=False" not in out and "ok=False" not in out
+
+
+def test_record_phase_fails_a_reference_one_ulp_off(cs, monkeypatch):
+    """A mismatch fails the phase through ``check``: here the first
+    record's step time, one ulp off, before any DES runs."""
+    want = {k: dict(v) for k, v in cs.REFERENCE_RECORD_PREDICT.items()}
+    name = next(iter(want))
+    want[name]["step_s"] = math.nextafter(want[name]["step_s"], math.inf)
+    monkeypatch.setattr(cs, "REFERENCE_RECORD_PREDICT", want)
+    with pytest.raises(cs.SmokeFailure, match=f"predict_cell {name}"):
+        cs.record_phase(torch.device("cpu"))

@@ -24,6 +24,7 @@ from repro_torch.serve import (HPLPredictionService, PredictionService,
                                ServeEngine, predict_top500, warm)
 from repro_torch.campaign import CampaignSpec, run_campaign
 from repro_torch.faults import FaultSpec, sweep_faults
+from repro_torch.ft import simulate_fault_impact
 from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
                                    get_platform)
 from repro_torch.scale import (RegionHPLSim, contention_drift,
@@ -61,6 +62,33 @@ from repro_torch.kernels.ssd_scan import ssd, ssd_scan
 ssd(torch.ones(1, 8, 2, 4), torch.ones(1, 8, 2), -torch.ones(2),
     torch.ones(1, 8, 2, 4), torch.ones(1, 8, 2, 4), 4)
 assert ssd_scan.launches == 0, ssd_scan.launches
+import json, os, tempfile
+from repro_torch.core import load_record, predict_cell, predict_cell_des, \
+    whatif
+from repro_torch.core.predict import DRYRUN_DIR
+from repro_torch.faults import FaultSpec
+from repro_torch.ft import (ElasticPlan, StepTimeMonitor, elastic_restart_plan,
+                            restart_plan_for_faults, simulate_fault_impact,
+                            simulate_straggler_impact)
+rec = {"arch": "x", "shape": "train_4k", "mesh": "16x16", "chips": 256,
+       "kind": "train", "roofline": {"hlo_flops_total": 2.56e17,
+                                     "hlo_bytes_total": 2.56e14},
+       "collectives": {"all-reduce": {"count": 10, "wire_bytes": 1e9}}}
+d = tempfile.mkdtemp()
+with open(os.path.join(d, "x__train_4k__16x16.json"), "w") as f:
+    json.dump(rec, f)
+assert load_record("x", "train_4k", dryrun_dir=d) == rec
+assert predict_cell("x", "train_4k", dryrun_dir=d).step_s > 0
+assert whatif("x", "train_4k", dryrun_dir=d, link_bw_scale=2.0)["speedup"] > 1
+assert StepTimeMonitor(warmup=1).record(0.1) is False
+assert isinstance(restart_plan_for_faults(
+    FaultSpec.fail_stop(rank=0), global_batch=12, resume_step=0,
+    old_mesh=(4, 4)), ElasticPlan)
+assert simulate_fault_impact("hpl", "bdw-local", FaultSpec.straggler(rank=0),
+                             device="cpu")["blowup"] > 1
+loaded = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not loaded, loaded
 print(len(names))
 """
 
@@ -150,6 +178,10 @@ def _entry_points():
             get_platform("tpu-v5e-pod")),
         "sweep_faults": lambda: sweep_faults(get_workload("hpl"), plat,
                                              [FaultSpec.straggler(rank=0)]),
+        "simulate_fault_impact": lambda: simulate_fault_impact(
+            "hpl", plat, FaultSpec.straggler(rank=0)),
+        "simulate_fault_impact_des": lambda: simulate_fault_impact(
+            "hpl", plat, FaultSpec.fail_stop(rank=0), des=True),
         "RegionHPLSim": lambda: RegionHPLSim(region_cfg, plat, region=6),
         "predict_des_regions": lambda: get_workload(
             "hpl", N=2048, nb=128, P=2, Q=2).predict_des(plat, regions=6),

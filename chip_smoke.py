@@ -169,6 +169,24 @@ after:
     128 prompt and 16 new tokens, 4 slots), which launches no kernel, as
     the reference's engine does, against the plain engine in bfloat16
     and float32.
+  * The encdec family: whisper-medium at full width and depth (24
+    encoder and 24 decoder layers, d_model 1024, 16 heads of 64, 1500
+    encoder frames, vocab 51,865, seeded weights), on which no kernel of
+    the port runs (the reference runs every encdec attention plain; the
+    three launch counts must stay 0 over the phase).  ``Model.loss`` and
+    ``forward`` on 4 sequences of 448 tokens, each behind its own 1500
+    seeded frames, in float32 and bfloat16, and ``ServeEngine`` (4
+    requests of 128 prompt and 16 new tokens, 4 slots) in both, held to
+    baselines the card does not produce: G1 the first sequence's float32
+    logits and loss against the host CPU's (1e-4); G2 a prefill of 432
+    tokens and 16 teacher-forced decode steps against ``forward`` (1e-4);
+    G3 every bfloat16 layer fed the float32 run's input against the
+    float32 run (5e-2); G4 the float32 served tokens and stats equal the
+    host CPU engine's, the bfloat16 ones equal or a near-tie.  Four faults
+    planted on the card side (the middle decoder layer's cross-attention
+    zeroed, a causal encoder, the decode position row off by one, the
+    cross-attention cache rolled along the batch in decode) must each read
+    above the limits of the gates they pass through.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -936,6 +954,19 @@ FLASH_RAGGED_80 = ((2, 300, 4, 3, 80), 177)
 # engine runs flash once a layer a prefill, 8 prefills
 HYBRID_LOSS_LAUNCHES = {"ssd_scan": 54, "flash_attention_fwd": 9}
 STABLELM_SERVE_LAUNCHES = 32 * SERVE_REQUESTS
+# the encdec family: whisper-medium at full width and depth, scored on
+# ENCDEC_B sequences of Whisper's 448-token text context, each behind its
+# own 1500 seeded encoder frames (the config's encoder_seq; arXiv:2212.04356
+# gives both contexts); G2's cached path prefills the first
+# ENCDEC_S - ENCDEC_DECODE tokens and decodes the rest teacher-forced
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_B, ENCDEC_S, ENCDEC_DECODE = 4, 448, 16
+ENCDEC_SERVE = (4, 128, 16, 4)
+# the faults planted on the card side, and the gates each must break
+ENCDEC_FAULTS = {"cross_attention_zeroed": ("G1", "G3"),
+                 "encoder_causal": ("G1", "G3"),
+                 "decode_position_off_by_one": ("G2",),
+                 "cross_cache_rolled": ("G2",)}
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -2399,34 +2430,53 @@ class RoutingLog:
 
 
 class StreamLog:
-    """The dense stack's residual stream in a run: every
-    ``Model._dense_layer_fwd`` call's (one a layer, in prefill and in the
-    loss's forward) input, attention output and output, in call order.
-    ``record()`` keeps them; ``replay(log)`` also feeds each call the input
-    ``log`` recorded for it in place of its own: each shape must match
-    and every recorded input must be used, or it raises
-    ``SmokeFailure``."""
+    """The residual stream in a run: every ``Model._dense_layer_fwd`` call's
+    (one a layer, in prefill and in the loss's forward; the encdec
+    family's encoder layers too) and ``Model._cross_layer_fwd`` call's (an
+    encdec decoder layer) input, self-attention output and output, in call
+    order, and for the latter the encoder output it reads (``encoded``)
+    and its cross-attention output (``cross``).  ``record()`` keeps them;
+    ``replay(log)`` also feeds each call the input (and encoder output)
+    ``log`` recorded for it, in the call's own dtype, in place of its own:
+    each shape must match and every recorded input must be used, or it
+    raises ``SmokeFailure``."""
 
     def __init__(self):
         self.inputs, self.attention, self.outputs = [], [], []
+        self.encoded, self.cross = [], []
 
     @contextlib.contextmanager
     def _hooked(self, source):
         from repro_torch.models import layers, lm
         fwd, attn = lm.Model._dense_layer_fwd, layers.apply_attention
+        xfwd, xattn = lm.Model._cross_layer_fwd, layers.apply_cross_attention
         self.inputs, self.attention, self.outputs = [], [], []
+        self.encoded, self.cross = [], []
         feed = iter(source.inputs) if source is not None else None
+        feed_enc = iter(source.encoded) if source is not None else None
+
+        def take(it, x):
+            if it is None:
+                return x
+            want = next(it, None)
+            check(want is not None and want.shape == x.shape,
+                  f"stream replay: layer call {len(self.inputs)} takes "
+                  f"{tuple(x.shape)}, recorded "
+                  f"{None if want is None else tuple(want.shape)}")
+            return want.to(x.dtype)
 
         def layer(model, p_l, x, positions, **kwargs):
-            if feed is not None:
-                want = next(feed, None)
-                check(want is not None and want.shape == x.shape,
-                      f"stream replay: layer call {len(self.inputs)} takes "
-                      f"{tuple(x.shape)}, recorded "
-                      f"{None if want is None else tuple(want.shape)}")
-                x = want
+            x = take(feed, x)
             self.inputs.append(x)
             out = fwd(model, p_l, x, positions, **kwargs)
+            self.outputs.append(out[0])
+            return out
+
+        def cross_layer(model, p_l, x, positions, enc_out):
+            x, enc_out = take(feed, x), take(feed_enc, enc_out)
+            self.inputs.append(x)
+            self.encoded.append(enc_out)
+            out = xfwd(model, p_l, x, positions, enc_out)
             self.outputs.append(out[0])
             return out
 
@@ -2434,13 +2484,21 @@ class StreamLog:
             out = attn(*args, **kwargs)
             self.attention.append(out[0])
             return out
-        lm.Model._dense_layer_fwd, layers.apply_attention = layer, attention
-        try:
+
+        def cross(*args, **kwargs):
+            out = xattn(*args, **kwargs)
+            self.cross.append(out)
+            return out
+        hooks = {(lm.Model, "_dense_layer_fwd"): layer,
+                 (lm.Model, "_cross_layer_fwd"): cross_layer,
+                 (layers, "apply_attention"): attention,
+                 (layers, "apply_cross_attention"): cross}
+        with contextlib.ExitStack() as stack:
+            for (owner, name), fn in hooks.items():
+                stack.enter_context(swapped(owner, name, fn))
             yield self
-        finally:
-            lm.Model._dense_layer_fwd, layers.apply_attention = fwd, attn
         if feed is not None:
-            check(next(feed, None) is None,
+            check(next(feed, None) is None and next(feed_enc, None) is None,
                   f"stream replay: {len(self.inputs)} layer calls of "
                   f"{len(source.inputs)} recorded")
 
@@ -3497,6 +3555,309 @@ def hybrid_phase(dev):
     return {(k, f"{HYBRID_ARCH} loss"): n for k, n in launches.items()}
 
 
+@contextlib.contextmanager
+def encdec_fault(fault, cfg):
+    """Plants one of ``ENCDEC_FAULTS`` (None: nothing) in the encdec path:
+    the middle decoder layer's cross-attention output zeroed (in every
+    forward, prefill and decode step: the entry point runs once a layer, in
+    layer order), the encoder's self-attention run causal, the decode
+    step's position row taken one row on, or the cross-attention K/V
+    rolled by one sequence along the batch inside ``decode``."""
+    from repro_torch.models import layers, lm
+    if fault is None:
+        patch = contextlib.nullcontext()
+    elif fault == "cross_attention_zeroed":
+        real_x, calls = layers.apply_cross_attention, []
+
+        def zeroed(*args, **kwargs):
+            out = real_x(*args, **kwargs)
+            calls.append(None)
+            mid = (len(calls) - 1) % cfg.num_layers == cfg.num_layers // 2
+            return torch.zeros_like(out) if mid else out
+        patch = swapped(layers, "apply_cross_attention", zeroed)
+    elif fault == "encoder_causal":
+        real_a = layers.apply_attention
+
+        def causal(*args, **kwargs):
+            return real_a(*args, **dict(kwargs, causal=True))
+        patch = swapped(layers, "apply_attention", causal)
+    elif fault == "decode_position_off_by_one":
+        real_row = lm.decode_position_row
+        patch = swapped(lm, "decode_position_row",
+                        lambda pos, d, device: real_row(pos + 1, d, device))
+    elif fault == "cross_cache_rolled":
+        real_dec, real_x = lm.Model.decode, layers.apply_cross_attention
+
+        def rolled(p, x, c, enc_k, enc_v):
+            return real_x(p, x, c, enc_k.roll(1, 0), enc_v.roll(1, 0))
+
+        def decode(model, *args, **kwargs):
+            with swapped(layers, "apply_cross_attention", rolled):
+                return real_dec(model, *args, **kwargs)
+        patch = swapped(lm.Model, "decode", decode)
+    else:
+        raise ValueError(fault)
+    with patch:
+        yield
+
+
+def encdec_batch(cfg, dev, seed=6):
+    """``ENCDEC_B`` seeded sequences of ``ENCDEC_S`` tokens, each behind its
+    own ``encoder_seq`` frames of normals x 0.1 (as the reference's model
+    tests draw encoder inputs)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (ENCDEC_B, ENCDEC_S),
+                                    generator=gen, device=dev),
+            "encoder_embeds": torch.randn(
+                ENCDEC_B, cfg.encoder_seq, cfg.d_model, generator=gen,
+                device=dev) * 0.1}
+
+
+def encdec_score(cfg, params, dev, batch, fault=None):
+    """``Model.forward``'s logits over the real vocabulary and
+    ``Model.loss`` of ``batch`` on ``dev`` (the model built with
+    ``use_kernel``, which this family ignores, as the reference does),
+    ``fault`` planted; returns (logits, loss, the loss's wall s)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg, use_kernel=True, device=dev)
+    with encdec_fault(fault, cfg):
+        (loss, _), wall = timed(lambda: model.loss(params, batch))
+        with torch.inference_mode():
+            logits = model.forward(params, batch)[0][..., :cfg.vocab_size]
+    check(bool(torch.isfinite(logits.float()).all())
+          and bool(torch.isfinite(loss)),
+          f"{cfg.name} {cfg.dtype}: non-finite logits or loss")
+    return logits, loss, wall
+
+
+def encdec_cached(cfg, params, dev, batch, fault=None):
+    """G2's cached path on ``dev``, ``fault`` planted: a prefill of the
+    first ``ENCDEC_S - ENCDEC_DECODE`` tokens of every sequence behind its
+    encoder frames, then ``ENCDEC_DECODE`` teacher-forced decode steps.
+    Returns the logits (B, ENCDEC_DECODE + 1, V) at positions
+    ``ENCDEC_S - ENCDEC_DECODE - 1`` to ``ENCDEC_S - 1`` and the prefill's
+    wall s."""
+    from repro_torch.models import build_model
+    model = build_model(cfg, use_kernel=True, device=dev)
+    n, v = ENCDEC_S - ENCDEC_DECODE, cfg.vocab_size
+    tokens = batch["tokens"]
+    with encdec_fault(fault, cfg), torch.inference_mode():
+        (cache, last), wall = timed(lambda: model.prefill(params, {
+            "tokens": tokens[:, :n],
+            "encoder_embeds": batch["encoder_embeds"]}, max_len=ENCDEC_S))
+        rows = [last[:, :v]]
+        for t in range(n, ENCDEC_S):
+            cache, logits = model.decode(params, cache, tokens[:, t:t + 1])
+            rows.append(logits[:, :v])
+    return torch.stack(rows, 1), wall
+
+
+def encdec_layer_gaps(cfg, params, dev, batch, log32, fault=None):
+    """G3: ``Model.forward`` in bfloat16 with every encoder and decoder
+    layer fed the float32 run's input (and each decoder layer its encoder
+    output) from ``log32``, ``fault`` planted.  Returns, for each of the
+    encoder layers' self-attention and output and the decoder layers'
+    self-attention, cross-attention and output, the largest gap over the
+    layers against the float32 run, each over the float32 tensor's largest
+    magnitude."""
+    from repro_torch.models import build_model
+    c16 = dataclasses.replace(cfg, dtype="bfloat16")
+    log = StreamLog()
+    with encdec_fault(fault, cfg), log.replay(log32), torch.inference_mode():
+        build_model(c16, use_kernel=True, device=dev).forward(params, batch)
+    n = cfg.num_encoder_layers
+    pairs = {"encoder self-attention": (log.attention[:n],
+                                        log32.attention[:n]),
+             "encoder layer": (log.outputs[:n], log32.outputs[:n]),
+             "decoder self-attention": (log.attention[n:],
+                                        log32.attention[n:]),
+             "cross-attention": (log.cross, log32.cross),
+             "decoder layer": (log.outputs[n:], log32.outputs[n:])}
+    check(all(len(a) == len(b) == (n if k.startswith("encoder")
+                                   else cfg.num_layers)
+              for k, (a, b) in pairs.items()),
+          f"{cfg.name}: the layer replay saw "
+          f"{ {k: len(a) for k, (a, _) in pairs.items()} } calls")
+    return {k: max(gap([x], [y]) for x, y in zip(a, b))
+            for k, (a, b) in pairs.items()}
+
+
+def encdec_gates(dev, cfg, params, batch, host):
+    """The baselines of G1-G3 (see ``encdec_checks``) for ``batch`` on
+    ``dev``, and one reading per gate: {gate: (read, limit)}, where
+    ``read(fault)`` runs the gate's side under test with ``fault`` planted
+    (None: none) and returns its gap.  Also returns the baselines' float32
+    logits and loss of the whole batch and the host's wall s."""
+    from repro_torch.models import build_model
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    first = {k: t[:1] for k, t in batch.items()}
+    host_params = _to(params, host)
+    hl, hloss, host_wall = encdec_score(
+        c32, host_params, host, {k: t.to(host) for k, t in first.items()})
+
+    def g1(fault=None):
+        logits, loss, _ = encdec_score(c32, params, dev, first, fault)
+        return max(gap([logits.to(host)], [hl]),
+                   gap([loss.to(host)], [hloss]))
+
+    encdec_score(c32, params, dev, batch)                        # warm
+    logits32, loss32, wall32 = encdec_score(c32, params, dev, batch)
+    want2 = logits32[:, ENCDEC_S - ENCDEC_DECODE - 1:]
+
+    def g2(fault=None):
+        return gap([encdec_cached(c32, params, dev, batch, fault)[0]],
+                   [want2])
+
+    log32 = StreamLog()
+    with log32.record(), torch.inference_mode():
+        build_model(c32, device=dev).forward(params, batch)
+
+    def g3(fault=None):
+        return max(encdec_layer_gaps(cfg, params, dev, batch, log32,
+                                     fault).values())
+    lim32, lim16 = PREFILL_LIMIT["float32"], PREFILL_LIMIT["bfloat16"]
+    gates = {"G1": (g1, lim32), "G2": (g2, lim32), "G3": (g3, lim16)}
+    return gates, (logits32, loss32, wall32, host_wall, log32)
+
+
+def encdec_checks(dev, cfg, params, host=torch.device("cpu")):
+    """Scoring, the cached path and serving of an encdec model on ``dev``
+    against baselines the code under test does not produce there, with
+    every port kernel's launch count held at 0 over all of it:
+
+      G1  the first sequence's float32 logits and loss on ``dev`` against
+          the same on the ``host`` CPU, the weights copied over (1e-4);
+      G2  the float32 cached path (``encdec_cached``) against
+          ``Model.forward`` at the same positions (1e-4); the distinct
+          encoder inputs of the batch let it see a cross-cache row mix-up,
+          which the engine's shared zero frames cannot;
+      G3  every bfloat16 layer fed the float32 run's input, against the
+          float32 run (``encdec_layer_gaps``; 5e-2); the whole-model bf16
+          logits' gap from the float32 ones is printed as the "stream
+          rounding", not gated;
+      G4  ``ServeEngine`` on ``ENCDEC_SERVE``: the float32 tokens and
+          ``stats`` on ``dev`` equal the host CPU engine's, and the
+          bfloat16 tokens equal the float32 ones or part at a near-tie in
+          the float32 engine's own step (``compare_served``).
+
+    Each of ``ENCDEC_FAULTS``, planted on the ``dev`` side only, must read
+    above the limit of every gate it is listed for."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.serve import ServeEngine
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    c16 = dataclasses.replace(cfg, dtype="bfloat16")
+    name, n = cfg.name, ENCDEC_S - ENCDEC_DECODE
+    batch = encdec_batch(cfg, dev)
+    gates, (logits32, loss32, wall32, host_wall, log32) = encdec_gates(
+        dev, cfg, params, batch, host)
+    encdec_score(c16, params, dev, batch)                        # warm
+    logits16, loss16, wall16 = encdec_score(c16, params, dev, batch)
+    stream = gap([logits16], [logits32])
+    pre = {c.dtype: [encdec_cached(c, params, dev, batch)[1]
+                     for _ in range(2)][-1] for c in (c32, c16)}
+    reads = {g: read() for g, (read, _) in gates.items()}
+    layer_gaps = encdec_layer_gaps(cfg, params, dev, batch, log32)
+    lim32, lim16 = gates["G1"][1], gates["G3"][1]
+    print(f"{name} scoring {ENCDEC_B} x ({cfg.encoder_seq} frames + "
+          f"{ENCDEC_S} tokens): Model.loss wall_s float32={wall32:.4f} "
+          f"bfloat16={wall16:.4f}, loss {float(loss32):.6f} / "
+          f"{float(loss16):.6f}; host CPU float32 Model.loss on one "
+          f"sequence {host_wall:.4f} s; prefill of {ENCDEC_B} x {n} wall_s "
+          f"float32={pre['float32']:.4f} bfloat16={pre['bfloat16']:.4f}",
+          flush=True)
+    print(f"{name} G1 card vs host CPU, float32, sequence 0: "
+          f"gap={reads['G1']:.3e} (limit {lim32}) over the logits and the "
+          "loss", flush=True)
+    print(f"{name} G2 prefill of {n} + {ENCDEC_DECODE} decode steps vs "
+          f"forward, float32: gap={reads['G2']:.3e} (limit {lim32}) over "
+          f"{ENCDEC_DECODE + 1} positions' logits", flush=True)
+    print(f"{name} G3 bfloat16 layer by layer on the float32 run's inputs: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in layer_gaps.items())
+          + f" (limit {lim16})", flush=True)
+    print(f"{name} bfloat16 stream rounding: the whole model's bf16 logits "
+          f"read {stream:.3e} from the float32 ones (not gated)", flush=True)
+    for g, v in reads.items():
+        check(v <= gates[g][1], f"{name} {g}: gap {v} > {gates[g][1]}")
+    for fault, listed in ENCDEC_FAULTS.items():
+        got = {g: gates[g][0](fault) for g in listed}
+        print(f"{name} planted fault {fault}: " + ", ".join(
+            f"{g} {v:.3e} (limit {gates[g][1]})" for g, v in got.items()),
+            flush=True)
+        for g, v in got.items():
+            check(v > gates[g][1], f"{name}: planted fault {fault} reads "
+                                   f"{g} {v}, within the limit "
+                                   f"{gates[g][1]}")
+
+    # G4: serving
+    spec = ENCDEC_SERVE
+    nreq, prompt, new, slots = spec
+    max_len = serve_max_len(cfg, prompt, new)
+    plain = plain_serve(dev, c32, params, spec)
+    host_eng = ServeEngine(c32, _to(params, host), batch_slots=slots,
+                           max_len=max_len, device=host)
+    host_out = host_eng.run(serve_requests(c32, nreq, prompt, new))
+    served = {}
+    for c in (c32, c16):
+        eng = ServeEngine(c, params, batch_slots=slots, max_len=max_len,
+                          device=dev)
+        eng.warm(prompt)
+        before = dict(eng.stats)
+        out, wall = timed(lambda: eng.run(serve_requests(c, nreq, prompt,
+                                                         new)))
+        stats = {k: eng.stats[k] - before[k] for k in eng.stats}
+        tokens = sum(len(t) for t in out.values())
+        served[c.dtype] = (out, stats)
+        print(f"serve {name} {c.dtype}: {nreq} requests x prompt {prompt} "
+              f"+ {new} new, {slots} slots: {tokens} tokens in {wall:.3f} s "
+              f"= {tokens / wall:.1f} tokens/s, stats {stats}", flush=True)
+    out32, stats32 = served["float32"]
+    check(out32 == host_out and stats32 == host_eng.stats,
+          f"serve {name} G4: the card's float32 tokens or stats "
+          f"{stats32} differ from the host CPU engine's {host_eng.stats}")
+    print(f"serve {name} G4: card and host CPU float32 engines served "
+          f"equal tokens for all {nreq} requests, stats equal", flush=True)
+    compare_served(dev, c16, params, served["bfloat16"][0], spec, plain,
+                   label=" (against the float32 engine)")
+    launches = {k.__name__: k.launches for k in counted}
+    print(f"{name} phase launches: {launches}", flush=True)
+    check(not any(launches.values()),
+          f"{name}: a kernel of the port was launched on the encdec path "
+          f"{launches}")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def encdec_phase(dev):
+    """(k) whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of 64, 1500 frames, vocab
+    51,865; seeded weights): ``encdec_checks``.  No kernel runs on this
+    path, as in the reference, so it returns no launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    params = lm_params(cfg, dev)
+    print(f"{ENCDEC_ARCH}: {param_count(params)} parameters; card "
+          f"{card_line()}", flush=True)
+    encdec_checks(dev, cfg, params)
+    return {}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -3553,11 +3914,7 @@ def main() -> int:
               "repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     # both float32 matmul and cuDNN in full float32: waterfill's link
     # counts need it (TF32 keeps 10 mantissa bits)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3692,9 +4049,10 @@ def main() -> int:
     # ---- the moe and vlm families: phi3.5-moe (8 of 32 layers) and
     # llava-next-mistral-7b, flash attention in each prefill at hd 128;
     # then head_dim 80: the flash kernel there, stablelm-3b's serving and
-    # the hybrid family (zamba2-2.7b: its loss runs both kernels)
+    # the hybrid family (zamba2-2.7b: its loss runs both kernels); then the
+    # encdec family (whisper-medium), on which no kernel runs
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
-                  hybrid_phase):
+                  hybrid_phase, encdec_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

@@ -1,6 +1,7 @@
 """Dense transformer building blocks (functional, dict-of-tensor params).
 
-Port of the dense parts of ``repro.models.layers``: the same functions,
+Port of ``repro.models.layers`` (the dense blocks, the enc-dec
+cross-attention and the sinusoidal position table): the same functions,
 names, parameter shapes and layouts (the grouped attention layout, ``wq``
 as (D, G, R, hd)), so that a parameter tree of the reference converts by
 a copy.  Parameters are nested dicts of tensors; activations run in the
@@ -138,6 +139,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None,
+                         start: int = 0) -> torch.Tensor:
+    """(seq_len, d_model) float32: sin at even columns, cos at odd ones, of
+    pos / 10000^(2i / d_model), for pos from ``start``; every element is
+    computed alone, so rows ``start:start + seq_len`` of a longer table are
+    these bits.  The power is taken in float64 and rounded once, which
+    gives the reference's float32 denominators (torch's float32 ``pow`` is
+    an ulp off at a few columns, which the angle of a late row multiplies
+    past the float32 parity limit)."""
+    pos = torch.arange(start, start + seq_len, dtype=torch.float32,
+                       device=device)[:, None]
+    expo = torch.arange(0, d_model, 2, dtype=torch.float32,
+                        device=device) / d_model
+    ang = pos / torch.pow(10000.0, expo.double()).float()[None, :]
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +305,42 @@ def apply_attention_decode(p: Params, x: torch.Tensor, cfg,
     out = mha(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
               kv_len=cache_len + 1, block_size=None)
     return _out_proj(p, out, x.dtype), (k_cache, v_cache)
+
+
+# cross-attention (enc-dec) -------------------------------------------------
+
+
+def layout_cross_attention(cfg) -> Layout:
+    """The self-attention tree; cross-attention uses only ``wq``, ``wk``,
+    ``wv`` and ``wo`` of it (no bias, no rope), as the reference's."""
+    return layout_attention(cfg)
+
+
+def init_cross_attention(cfg, *, generator: torch.Generator,
+                         device: torch.device) -> Params:
+    return init_attention(cfg, generator=generator, device=device)
+
+
+def apply_cross_attention(p: Params, x: torch.Tensor, cfg,
+                          enc_k: torch.Tensor,
+                          enc_v: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) attends over every encoder position: enc_k, enc_v
+    (B, S_enc, G, hd) from ``cross_kv``.  Plain ``mha`` at its default
+    block size, never the kernel (the reference's call)."""
+    b, s, d = x.shape
+    wq = cast(p["wq"], x.dtype)
+    q = (x @ wq.reshape(d, -1)).view(b, s, *wq.shape[1:])
+    return _out_proj(p, mha(q, enc_k, enc_v, causal=False), x.dtype)
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg):
+    """The encoder output's keys and values, (B, S_enc, G, hd) each."""
+    b, s, d = enc_out.shape
+    dtype = enc_out.dtype
+    k = enc_out @ cast(p["wk"], dtype).reshape(d, -1)
+    v = enc_out @ cast(p["wv"], dtype).reshape(d, -1)
+    return (k.view(b, s, *p["wk"].shape[1:]),
+            v.view(b, s, *p["wv"].shape[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,21 @@
-"""Model assembly for the dense, moe, vlm, ssm and hybrid families.
+"""Model assembly for every family of the reference.
 
 Port of ``repro.models.lm.Model`` for ``family`` "dense" (qwen2-style),
 "moe" (the dense layer with a Mixture-of-Experts MLP), "vlm" (the dense
-stack with image embeddings prepended), "ssm" (Mamba-2) and "hybrid"
+stack with image embeddings prepended), "ssm" (Mamba-2), "hybrid"
 (zamba2: groups of ``hybrid_period`` Mamba-2 layers, each group followed
-by one shared attention + MLP block, the same parameters in every group);
-"encdec" raises ``NotImplementedError`` naming the slice that ports it.
+by one shared attention + MLP block, the same parameters in every group)
+and "encdec" (whisper: a stack of non-causal encoder layers over
+``batch["encoder_embeds"]``, then decoder layers of causal
+self-attention, cross-attention over the encoder output and an MLP, with
+sinusoidal positions added to both inputs; every attention of the family
+is plain, as in the reference, whatever ``use_kernel`` says).
 Same methods as the reference, on nested dicts of tensors::
 
   init(generator) -> params                 forward(params, batch) -> (logits, aux)
   loss(params, batch) -> (loss, metrics)
-  init_cache(batch, max_len) -> cache       prefill(params, batch, max_len) -> (cache, logits)
+  init_cache(batch, max_len, enc_len=0) -> cache
+  prefill(params, batch, max_len) -> (cache, logits)
   decode(params, cache, tokens) -> (cache, logits)
 
 Layer parameters are stacked on a leading layer axis, as in the
@@ -37,17 +42,13 @@ from . import moe as MOE
 
 Params = Dict[str, Any]
 
-# the slice of the port that brings each family not yet ported
-_UNPORTED = {"encdec": "slice 8c-ii(a)"}
-_PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
+_PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+# rows of the table the reference's ``decode`` takes the encdec family's
+# position row from
+DECODE_POSITIONS = 8192
 
 
 def _check_family(cfg) -> None:
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"repro_torch.models: the {cfg.family!r} family ({cfg.name}) is "
-            f"not ported yet ({_UNPORTED[cfg.family]}); "
-            + ", ".join(repr(f) for f in _PORTED) + " are")
     if cfg.family not in _PORTED:
         raise ValueError(cfg.family)
     if cfg.family == "hybrid" and (
@@ -65,17 +66,26 @@ def _stacked(layout, n: int):
 
 def layer_layout(cfg) -> L.Layout:
     """One stacked layer's parameters: the reference's ``_init_layer``
-    (dense, moe, vlm: "moe" in place of "mlp" for the moe family) or
-    ``_init_ssm_layer`` (ssm, hybrid) tree."""
+    (dense, moe, vlm: "moe" in place of "mlp" for the moe family),
+    ``_init_ssm_layer`` (ssm, hybrid) or ``_init_decdec_layer`` (encdec:
+    the decoder layer) tree."""
     if cfg.family in ("ssm", "hybrid"):
         return {"ln": L.layout_norm(cfg.d_model, cfg.norm),
                 "ssm": M.layout_ssm(cfg)}
+    if cfg.family == "encdec":
+        return {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
+                "attn": L.layout_attention(cfg),
+                "lnx": L.layout_norm(cfg.d_model, cfg.norm),
+                "cross": L.layout_cross_attention(cfg),
+                "ln2": L.layout_norm(cfg.d_model, cfg.norm),
+                "mlp": L.layout_mlp(cfg)}
     return dense_layout(cfg)
 
 
 def dense_layout(cfg) -> L.Layout:
     """An attention + MLP (or MoE) layer: the reference's ``_init_layer``
-    tree, which is also the hybrid family's one ``shared`` block."""
+    tree, which is also the hybrid family's one ``shared`` block and the
+    encdec family's encoder layer."""
     p = {"ln1": L.layout_norm(cfg.d_model, cfg.norm),
          "attn": L.layout_attention(cfg),
          "ln2": L.layout_norm(cfg.d_model, cfg.norm)}
@@ -86,16 +96,36 @@ def dense_layout(cfg) -> L.Layout:
     return p
 
 
+def _stacks(cfg) -> Dict[str, Tuple[L.Layout, int]]:
+    """The stacked subtrees: name -> (one layer's layout, layer count)."""
+    stacks = {"layers": (layer_layout(cfg), cfg.num_layers)}
+    if cfg.family == "encdec":
+        stacks["enc_layers"] = (dense_layout(cfg), cfg.num_encoder_layers)
+    return stacks
+
+
 def param_layout(cfg) -> L.Layout:
     """Every parameter's (shape, init kind), layers stacked on axis 0: the
     reference's ``Model.init`` tree, shape for shape."""
     _check_family(cfg)
     p = {"embed": L.layout_embed(cfg),
-         "final_norm": L.layout_norm(cfg.d_model, cfg.norm),
-         "layers": _stacked(layer_layout(cfg), cfg.num_layers)}
+         "final_norm": L.layout_norm(cfg.d_model, cfg.norm)}
+    p.update({k: _stacked(lay, n) for k, (lay, n) in _stacks(cfg).items()})
     if cfg.family == "hybrid":
         p["shared"] = dense_layout(cfg)
+    if cfg.family == "encdec":
+        p["enc_norm"] = L.layout_norm(cfg.d_model, cfg.norm)
     return p
+
+
+def decode_position_row(pos: int, d_model: int, device) -> torch.Tensor:
+    """(1, d_model) float32: the encdec decode step's position row, row
+    ``pos`` of the reference's ``DECODE_POSITIONS``-row sinusoidal table.
+    The reference slices it with ``lax.dynamic_slice_in_dim``, which clamps
+    the start into the table, so every position past the last row reads
+    the last row; this does the same."""
+    row = min(max(int(pos), 0), DECODE_POSITIONS - 1)
+    return L.sinusoidal_positions(1, d_model, device, start=row)
 
 
 def _layer(stacked: Params, i: int) -> Params:
@@ -114,7 +144,8 @@ class Model(nn.Module):
     family's ``forward`` and ``loss`` run both (each ssm layer's scan, and
     the shared block's attention once a group); its ``prefill`` runs
     neither, as the reference's (which calls the shared block's attention
-    without ``use_kernel``)."""
+    without ``use_kernel``).  Nor does any method of the encdec family:
+    the reference runs its encoder, decoder and cross-attention plain."""
 
     def __init__(self, cfg, use_kernel: bool = False,
                  device: DeviceLike = "cuda"):
@@ -130,27 +161,28 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters drawn from ``generator`` (a CPU or CUDA
         generator; the tensors land on the model's device)."""
-        cfg = self.cfg
-        layout = param_layout(cfg)
-        p = {k: L.init_from_layout(layout[k], generator, self.device,
-                                   self.param_dtype)
-             for k in ("embed", "final_norm")}
-        p["layers"] = L.init_from_layout(layer_layout(cfg), generator,
-                                         self.device, self.param_dtype,
-                                         lead=(cfg.num_layers,))
-        if cfg.family == "hybrid":
-            p["shared"] = L.init_from_layout(layout["shared"], generator,
-                                             self.device, self.param_dtype)
+        stacks = _stacks(self.cfg)
+        p = {}
+        for k, lay in param_layout(self.cfg).items():
+            lead = ()
+            if k in stacks:
+                lay, n = stacks[k]
+                lead = (n,)
+            p[k] = L.init_from_layout(lay, generator, self.device,
+                                      self.param_dtype, lead=lead)
         return p
 
     def _plan(self, params: Params) -> List[Tuple[str, int, Params, bool]]:
-        """The stack in run order: (kind "ssm" or "dense", cache index,
-        layer parameters, shared).  The hybrid family runs its one
-        ``shared`` block after every ``hybrid_period`` ssm layers, with
-        cache index g in group g (the reference's reshape of the stack into
-        groups); the same parameters serve every group."""
+        """The stack in run order: (kind "ssm", "dense" or "cross" (an
+        encdec decoder layer), cache index, layer parameters, shared).  The
+        hybrid family runs its one ``shared`` block after every
+        ``hybrid_period`` ssm layers, with cache index g in group g (the
+        reference's reshape of the stack into groups); the same parameters
+        serve every group.  The encdec encoder is not in the plan: it runs
+        first, in ``_encoder``."""
         cfg = self.cfg
-        kind = "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
+        kind = {"ssm": "ssm", "hybrid": "ssm",
+                "encdec": "cross"}.get(cfg.family, "dense")
         plan = []
         for i in range(cfg.num_layers):
             plan.append((kind, i, _layer(params["layers"], i), False))
@@ -164,7 +196,8 @@ class Model(nn.Module):
         """Returns (x, positions, loss_mask, labels).  For the vlm family
         ``batch["image_embeds"]`` (B, N_img, D) is prepended to the token
         embeddings; its positions carry label 0 and no loss, and the mask
-        is (1, S), as the reference's."""
+        is (1, S), as the reference's.  The encdec family adds the
+        sinusoidal position table to the token embeddings."""
         cfg = self.cfg
         dev = self.device
         tokens = torch.as_tensor(batch["tokens"], dtype=torch.long,
@@ -185,6 +218,9 @@ class Model(nn.Module):
             labels = torch.roll(tokens, -1, dims=1)
             mask = (torch.arange(s, device=dev) < s - 1).float()
             mask = mask[None, :].expand(b, s)
+        if cfg.family == "encdec":
+            x = x + L.sinusoidal_positions(s, cfg.d_model, dev).to(
+                self.dtype)[None]
         positions = torch.arange(s, device=dev)[None].expand(b, s)
         return x, positions, mask, labels
 
@@ -196,7 +232,8 @@ class Model(nn.Module):
                 torch.zeros((), dtype=torch.float32, device=self.device))
 
     def _dense_layer_fwd(self, p_l: Params, x: torch.Tensor, positions,
-                         use_kernel: Optional[bool] = None):
+                         use_kernel: Optional[bool] = None,
+                         causal: bool = True):
         """Returns (x, (k, v), balance loss).  The attention runs through
         the kernel if ``use_kernel`` (default: the model's)."""
         cfg = self.cfg
@@ -204,11 +241,44 @@ class Model(nn.Module):
             use_kernel = self.use_kernel
         h = L.apply_norm(p_l["ln1"], x, cfg.norm)
         a, kv = L.apply_attention(p_l["attn"], h, cfg, positions,
-                                  use_kernel=use_kernel)
+                                  causal=causal, use_kernel=use_kernel)
         x = x + a
         h = L.apply_norm(p_l["ln2"], x, cfg.norm)
         m, aux = self._ffn(p_l, h)
         return x + m, kv, aux
+
+    def _cross_layer_fwd(self, p_l: Params, x: torch.Tensor, positions,
+                         enc_out: torch.Tensor):
+        """An encdec decoder layer over the whole sequence: causal
+        self-attention, cross-attention over ``enc_out``, MLP, all plain.
+        Returns (x, (k, v), (ck, cv))."""
+        cfg = self.cfg
+        h = L.apply_norm(p_l["ln1"], x, cfg.norm)
+        a, kv = L.apply_attention(p_l["attn"], h, cfg, positions,
+                                  use_kernel=False)
+        x = x + a
+        h = L.apply_norm(p_l["lnx"], x, cfg.norm)
+        ck, cv = L.cross_kv(p_l["cross"], enc_out, cfg)
+        x = x + L.apply_cross_attention(p_l["cross"], h, cfg, ck, cv)
+        h = L.apply_norm(p_l["ln2"], x, cfg.norm)
+        return x + L.apply_mlp(p_l["mlp"], h, cfg), kv, (ck, cv)
+
+    def _encoder(self, params: Params, enc_embeds) -> torch.Tensor:
+        """The encdec encoder: ``enc_embeds`` (B, S_enc, D) in the compute
+        dtype plus the sinusoidal table, non-causal plain self-attention
+        (rope still applies, as in the reference) and the MLP in every
+        layer, then ``enc_norm``."""
+        cfg = self.cfg
+        x = torch.as_tensor(enc_embeds, device=self.device).to(self.dtype)
+        b, s = x.shape[:2]
+        x = x + L.sinusoidal_positions(s, cfg.d_model, self.device).to(
+            self.dtype)[None]
+        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        for i in range(cfg.num_encoder_layers):
+            x = self._dense_layer_fwd(_layer(params["enc_layers"], i), x,
+                                      positions, use_kernel=False,
+                                      causal=False)[0]
+        return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _ssm_layer_fwd(self, p_l: Params, x: torch.Tensor):
         h = L.apply_norm(p_l["ln"], x, self.cfg.norm)
@@ -221,9 +291,13 @@ class Model(nn.Module):
         cfg = self.cfg
         x, positions, mask, labels = self._embed_inputs(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if cfg.family == "encdec":
+            enc_out = self._encoder(params, batch["encoder_embeds"])
         for kind, _, p_l, _ in self._plan(params):
             if kind == "ssm":
                 x = self._ssm_layer_fwd(p_l, x)
+            elif kind == "cross":
+                x = self._cross_layer_fwd(p_l, x, positions, enc_out)[0]
             else:
                 x, _, a = self._dense_layer_fwd(p_l, x, positions)
                 aux = aux + a
@@ -249,12 +323,15 @@ class Model(nn.Module):
         return total, {"ce": ce, "aux": aux, "tokens": denom}
 
     # -------------------------------------------------------------- cache
-    def init_cache(self, batch_size: int, max_len: int) -> Params:
+    def init_cache(self, batch_size: int, max_len: int,
+                   enc_len: int = 0) -> Params:
         """The dense stack's (dense, moe, vlm) K/V cache (L, B, max_len, G,
         hd) in the compute dtype, or the ssm family's {"conv": (L, B, K-1, C),
         "state": (L, B, H, P, N)} in float32 (``max_len`` unused).  The
         hybrid family has both: the ssm cache of every layer, and K/V of
-        the shared block, one (B, max_len, G, hd) per group."""
+        the shared block, one (B, max_len, G, hd) per group.  The encdec
+        family has the decoder's K/V and the cross-attention's "ck"/"cv",
+        (L, B, enc_len or ``encoder_seq``, G, hd) in the compute dtype."""
         cfg = self.cfg
         cache: Params = {"len": 0}
         if cfg.family in ("ssm", "hybrid"):
@@ -271,6 +348,13 @@ class Model(nn.Module):
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
         cache["v"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if cfg.family == "encdec":
+            shape = (cfg.num_layers, batch_size, enc_len or cfg.encoder_seq,
+                     cfg.n_kv_heads, cfg.resolved_head_dim)
+            cache["ck"] = torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)
+            cache["cv"] = torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)
         return cache
 
     # ------------------------------------------------------------ prefill
@@ -282,7 +366,11 @@ class Model(nn.Module):
         if s > max_len and cfg.family != "ssm":
             raise ValueError(f"prefill: prompt of {s} tokens > max_len "
                              f"{max_len}")
-        cache = self.init_cache(b, max_len)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = self._encoder(params, batch["encoder_embeds"])
+        cache = self.init_cache(
+            b, max_len, enc_len=0 if enc_out is None else enc_out.shape[1])
 
         for kind, i, p_l, shared in self._plan(params):
             if kind == "ssm":
@@ -291,6 +379,13 @@ class Model(nn.Module):
                 for k, v in st.items():
                     cache["ssm"][k][i] = v
                 x = x + y
+            elif kind == "cross":
+                x, (k, v), (ck, cv) = self._cross_layer_fwd(
+                    p_l, x, positions, enc_out)
+                cache["k"][i, :, :s] = k
+                cache["v"][i, :, :s] = v
+                cache["ck"][i] = ck
+                cache["cv"][i] = cv
             else:
                 # the hybrid's shared block runs plain attention here, as
                 # the reference's hybrid prefill does
@@ -314,6 +409,9 @@ class Model(nn.Module):
                              "positions is full")
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         x = L.apply_embed(params["embed"], tokens, cfg)
+        if cfg.family == "encdec":
+            x = x + decode_position_row(pos, cfg.d_model, self.device).to(
+                self.dtype)[None]
 
         for kind, i, p_l, _ in self._plan(params):
             if kind == "ssm":
@@ -321,14 +419,18 @@ class Model(nn.Module):
                 y, _ = M.apply_ssm_decode(p_l["ssm"], h, cfg, {
                     k: v[i] for k, v in cache["ssm"].items()})
                 x = x + y
-            else:
-                h = L.apply_norm(p_l["ln1"], x, cfg.norm)
-                a, _ = L.apply_attention_decode(p_l["attn"], h, cfg,
-                                                cache["k"][i], cache["v"][i],
-                                                pos)
-                x = x + a
-                h = L.apply_norm(p_l["ln2"], x, cfg.norm)
-                x = x + self._ffn(p_l, h)[0]
+                continue
+            h = L.apply_norm(p_l["ln1"], x, cfg.norm)
+            a, _ = L.apply_attention_decode(p_l["attn"], h, cfg,
+                                            cache["k"][i], cache["v"][i], pos)
+            x = x + a
+            if kind == "cross":
+                h = L.apply_norm(p_l["lnx"], x, cfg.norm)
+                x = x + L.apply_cross_attention(
+                    p_l["cross"], h, cfg, cache["ck"][i].to(x.dtype),
+                    cache["cv"][i].to(x.dtype))
+            h = L.apply_norm(p_l["ln2"], x, cfg.norm)
+            x = x + self._ffn(p_l, h)[0]
         cache["len"] = pos + 1
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x, cfg)

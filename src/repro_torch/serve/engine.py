@@ -24,7 +24,11 @@ launches no SSD kernel, as in the reference.  Nor for the hybrid family
 (zamba2): its prefill runs the chunked scan and the shared block's plain
 attention, as the reference's does, so serving it launches no kernel at
 all.  Its cache (the ssm cache of every layer, the shared block's K/V of
-every group) is stacked on the batch axis like the others.
+every group) is stacked on the batch axis like the others.  Nor for the
+encdec family (whisper), whose every attention is plain, as in the
+reference: a request is prefilled behind ``encoder_seq`` zero encoder
+frames (there is no audio frontend, as in the reference's engine), and
+its cross-attention cache ("ck", "cv") is stacked with the rest.
 """
 from __future__ import annotations
 
@@ -88,6 +92,10 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
                                  device=self.device)[None, :]
         batch = {"tokens": tokens}
+        if self.cfg.family == "encdec":
+            batch["encoder_embeds"] = torch.zeros(
+                (1, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
         if self.cfg.family == "vlm":
             # no image frontend: a zero image prefix, as the reference's
             # engine serves it (``max_len`` must cover it)

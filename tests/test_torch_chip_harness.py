@@ -5,9 +5,11 @@ record/replay (``StreamLog``), the float32 flash element bound
 the served-token comparison (``plain_serve``'s per-step logits, its
 schedule check, and ``compare_served``'s near-tie gate), and the zamba2
 loss phase (``hybrid_run``'s instruments, ``hybrid_loss_phase``'s gates
-and launch counts) and serve phase on the reduced hybrid model, and the
+and launch counts) and serve phase on the reduced hybrid model, the
 dry-run-record phase (``record_phase``, host Python but for one fastsim
-call) passing and failing on a planted mismatch.  These run on the card
+call) passing and failing on a planted mismatch, and the whisper phase
+(``encdec_checks``: its gates G1-G4, the four planted faults, its launch
+counts) on reduced whisper-medium.  These run on the card
 around the kernels; here each kernel's plain version runs in its
 place."""
 import dataclasses
@@ -400,3 +402,82 @@ def test_record_phase_fails_a_reference_one_ulp_off(cs, monkeypatch):
     monkeypatch.setattr(cs, "REFERENCE_RECORD_PREDICT", want)
     with pytest.raises(cs.SmokeFailure, match=f"predict_cell {name}"):
         cs.record_phase(torch.device("cpu"))
+
+
+ENCDEC_FAULTS = ["cross_attention_zeroed", "cross_cache_rolled",
+                 "decode_position_off_by_one", "encoder_causal"]
+
+
+@pytest.fixture
+def encdec(cs, monkeypatch):
+    """Reduced whisper-medium (2 encoder + 2 decoder layers, d 128, 16
+    frames, vocab 512, bf16 as configured) with the phase cut to its
+    size: 2 sequences of 24 tokens, the last 4 decoded teacher-forced, and
+    4 served requests of 10 prompt and 4 new tokens.  The card's side runs
+    on the CPU here, so G1 and G4 hold the CPU against itself."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cs, "ENCDEC_B", 2)
+    monkeypatch.setattr(cs, "ENCDEC_S", 24)
+    monkeypatch.setattr(cs, "ENCDEC_DECODE", 4)
+    monkeypatch.setattr(cs, "ENCDEC_SERVE", (4, 10, 4, 4))
+    cfg = reduced(get_config("whisper-medium"))
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    return cfg, params
+
+
+def test_encdec_checks_pass_unfaulted_with_no_launch(cs, encdec, capsys):
+    """The whisper phase's machinery passes every gate unfaulted, each
+    planted fault reads above the limits of its gates (the phase checks
+    both), and no kernel of the port is launched in it."""
+    cfg, params = encdec
+    cs.encdec_checks(torch.device("cpu"), cfg, params)
+    out = capsys.readouterr().out
+    assert sorted(cs.ENCDEC_FAULTS) == ENCDEC_FAULTS
+    assert out.count("planted fault") == len(ENCDEC_FAULTS)
+    assert ("phase launches: {'masked_min_rows': 0, "
+            "'flash_attention_fwd': 0, 'ssd_scan': 0}") in out
+    assert "G4: card and host CPU float32 engines served equal tokens" in out
+
+
+@pytest.mark.parametrize("fault", ENCDEC_FAULTS)
+def test_encdec_fault_breaks_the_gates_it_must(cs, encdec, fault):
+    """Each planted fault reads above the limit of each gate it is listed
+    for (F1, F2: G1 and G3; F3, F4: G2), where the unfaulted run reads
+    within it."""
+    cfg, params = encdec
+    dev = torch.device("cpu")
+    gates, _ = cs.encdec_gates(dev, cfg, params, cs.encdec_batch(cfg, dev),
+                               dev)
+    for g in cs.ENCDEC_FAULTS[fault]:
+        read, limit = gates[g]
+        assert read() <= limit, g
+        assert read(fault) > limit, g
+
+
+def test_encdec_checks_fail_a_decode_position_bug(cs, encdec, monkeypatch):
+    """A decode step that adds the next position's row, in the code under
+    test everywhere (the host's side too), fails the phase at G2."""
+    from repro_torch.models import lm
+    real = lm.decode_position_row
+    monkeypatch.setattr(lm, "decode_position_row",
+                        lambda pos, d, device: real(pos + 1, d, device))
+    cfg, params = encdec
+    with pytest.raises(cs.SmokeFailure, match="G2"):
+        cs.encdec_checks(torch.device("cpu"), cfg, params)
+
+
+def test_encdec_checks_count_launches(cs, encdec, monkeypatch):
+    """A launch counted anywhere on the path (here one a cross-attention
+    call) fails the phase."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import layers
+    real = layers.apply_cross_attention
+
+    def counted(*args, **kwargs):
+        flash_attention_fwd.launches += 1
+        return real(*args, **kwargs)
+    monkeypatch.setattr(layers, "apply_cross_attention", counted)
+    cfg, params = encdec
+    with pytest.raises(cs.SmokeFailure, match="launched on the encdec path"):
+        cs.encdec_checks(torch.device("cpu"), cfg, params)

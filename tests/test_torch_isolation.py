@@ -134,6 +134,7 @@ def _entry_points():
     moe = reduced(get_config("phi3.5-moe-42b-a6.6b"))
     vlm = reduced(get_config("llava-next-mistral-7b"))
     hybrid = reduced(get_config("zamba2-2.7b"))
+    encdec = reduced(get_config("whisper-medium"))
     step = get_workload("transformer").fastsim_model(
         get_platform("tpu-v5e-pod")).params
     region_cfg = HPLConfig(N=2048, nb=128, P=2, Q=2, lookahead=0)
@@ -166,6 +167,10 @@ def _entry_points():
         "ServeEngine_hybrid": lambda: ServeEngine(hybrid, {}),
         "lm_params_from_reference_hybrid": lambda: lm_params_from_reference(
             _lm_tree(hybrid), hybrid),
+        "build_model_encdec": lambda: build_model(encdec),
+        "ServeEngine_encdec": lambda: ServeEngine(encdec, {}),
+        "lm_params_from_reference_encdec": lambda: lm_params_from_reference(
+            _lm_tree(encdec), encdec),
         "fit_fastsim_params": lambda: fit_fastsim_params(
             [(cfg, 0.05)], prm, fields=("gemm_eff",), steps=1),
         "whatif_grid": lambda: whatif_grid(get_workload("hpl"), plat,
@@ -215,7 +220,7 @@ def _lm_tree(cfg):
 
 LM_ARCHS = {"": "qwen2-0.5b", "_ssm": "mamba2-780m",
             "_moe": "phi3.5-moe-42b-a6.6b", "_vlm": "llava-next-mistral-7b",
-            "_hybrid": "zamba2-2.7b"}
+            "_hybrid": "zamba2-2.7b", "_encdec": "whisper-medium"}
 
 
 @pytest.mark.parametrize("name", [
@@ -224,9 +229,11 @@ LM_ARCHS = {"": "qwen2-0.5b", "_ssm": "mamba2-780m",
     "build_model_moe", "ServeEngine_moe", "lm_params_from_reference_moe",
     "build_model_vlm", "ServeEngine_vlm", "lm_params_from_reference_vlm",
     "build_model_hybrid", "ServeEngine_hybrid",
-    "lm_params_from_reference_hybrid"])
+    "lm_params_from_reference_hybrid", "build_model_encdec",
+    "ServeEngine_encdec", "lm_params_from_reference_encdec"])
 def test_lm_entry_points_run_on_the_cpu_when_asked(name):
-    suffix = next(s for s in ("_ssm", "_moe", "_vlm", "_hybrid", "")
+    suffix = next(s for s in ("_ssm", "_moe", "_vlm", "_hybrid", "_encdec",
+                              "")
                   if name.endswith(s))
     base = name.removesuffix(suffix)
     lm = reduced(get_config(LM_ARCHS[suffix]))
@@ -245,10 +252,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, name):
 
 
 def test_unported_paths_name_their_slice():
-    """What is still unported names the slice that owns it (the encdec
-    models, slice 8c-ii(a)); the paths ported since run: the DES
-    (slice 4), representative regions (``regions=``, slice 6) and fault
-    scenarios on the fast model (slice 5)."""
+    """Every model family is ported (the encdec family, whisper-medium,
+    the last, builds at full size on the CPU);
+    the paths ported since the first slices run: the DES (slice 4),
+    representative regions (``regions=``, slice 6) and fault scenarios on
+    the fast model (slice 5)."""
     plat = get_platform("bdw-local")
     wl = get_workload("hpl")
     app = wl.des_app(plat)
@@ -264,8 +272,8 @@ def test_unported_paths_name_their_slice():
     assert out["events"] < 10597
     model = wl.fastsim_model(plat, faults={"faults": []})
     assert model.params == plat.fastsim()
-    with pytest.raises(NotImplementedError, match=r"slice 8c-ii\(a\)"):
-        build_model(get_config("whisper-medium"), device="cpu")
+    whisper = build_model(get_config("whisper-medium"), device="cpu")
+    assert (whisper.cfg.family, whisper.device.type) == ("encdec", "cpu")
     assert wl.des_ranks(plat) == HPLConfig(4096, 128, 4, 4).n_ranks
 
 

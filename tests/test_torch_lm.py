@@ -199,13 +199,25 @@ def test_plain_serve_engine_matches_reference(ref_params, ref_serve):
                                       want["warm"])
 
 
-@pytest.mark.parametrize("name,slice_", [("whisper-medium", "slice 8c-ii")])
-def test_unported_families_raise(name, slice_):
-    cfg = reduced(get_config(name))
-    with pytest.raises(NotImplementedError, match=slice_):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=slice_):
-        lm_params_from_reference({}, cfg, device="cpu")
+def test_encdec_builds_and_unknown_family_raises():
+    """whisper-medium's encdec family builds and converts a tree of its
+    layout; a family the reference does not have raises ``ValueError`` in
+    both."""
+    cfg = reduced(get_config("whisper-medium"))
+    assert build_model(cfg, device="cpu").cfg.family == "encdec"
+
+    def zeros(layout):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros(v[0])
+                for k, v in layout.items()}
+    tree = lm_params_from_reference(zeros(param_layout(cfg)), cfg,
+                                    device="cpu")
+    assert set(tree) == {"embed", "final_norm", "layers", "enc_layers",
+                         "enc_norm"}
+    bogus = dataclasses.replace(cfg, family="audio")
+    with pytest.raises(ValueError, match="audio"):
+        build_model(bogus, device="cpu")
+    with pytest.raises(ValueError, match="audio"):
+        lm_params_from_reference({}, bogus, device="cpu")
 
 
 def test_param_layout_matches_reference_tree(ref_params):

@@ -187,6 +187,20 @@ after:
     zeroed, a causal encoder, the decode position row off by one, the
     cross-attention cache rolled along the batch in decode) must each read
     above the limits of the gates they pass through.
+  * The serving launcher: L1 runs ``python -m repro_torch.launch.serve
+    --arch qwen2-0.5b --requests 8`` (full width, the launcher's own
+    seed-0 weights) in a child process, whose printed counts and stats
+    must be the schedule's (8 requests, 128 tokens, 30 decode steps);
+    then its ``serve`` on the same weights in bfloat16 and float32 (192
+    flash launches each) against the host CPU's run: tokens equal in
+    float32, equal or a near-tie in bfloat16.  L2 serves each of the ten
+    archs at ``--smoke --requests 2 --batch-slots 2`` likewise, and holds
+    the logits of llava-next's six decode steps past the launcher's cache
+    (its image prefix is not in ``max_len``) against the host's.  Three
+    faults planted on the card side (the decode write wrapping to row
+    ``cache_len % max_len``, RoPE at the clamped row, the middle qwen2
+    layer's flash output zeroed in every prefill) must each break the
+    gates ``LAUNCH_FAULTS`` lists and no other.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -195,12 +209,15 @@ repository's src/ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -931,9 +948,13 @@ VLM_PROMPT, VLM_DECODE = 128, 4
 # 2,880 image + 128 text positions (not a multiple of the 128-row tile)
 FLASH_MOE = (MOE_B, MOE_S, 8, 4, 128)
 FLASH_VLM = (1, 2880 + VLM_PROMPT, 8, 4, 128)
+# R = 16 and R = 48 query heads a group at hd 128, reduced widths: the
+# group ratios of qwen3-moe-235b-a22b (64 heads in 4 KV groups) and
+# granite-34b (MQA), both archs the serving launcher takes
+FLASH_WIDE_R = [(1, 256, 4, 16, 128), (1, 256, 1, 48, 128)]
 FLASH_SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
                 (1, 512, 4, 2, 128), (1, 200, 2, 7, 64), FLASH_SERVED,
-                FLASH_MOE, FLASH_VLM]
+                FLASH_MOE, FLASH_VLM] + FLASH_WIDE_R
 FLASH_PREFILL = (4, 2048, 2, 7, 64)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # head_dim 80: stablelm-3b (dense, 32 heads of 80, served as qwen2-0.5b is)
@@ -967,6 +988,24 @@ ENCDEC_FAULTS = {"cross_attention_zeroed": ("G1", "G3"),
                  "encoder_causal": ("G1", "G3"),
                  "decode_position_off_by_one": ("G2",),
                  "cross_cache_rolled": ("G2",)}
+# the serving launcher (``python -m repro_torch.launch.serve``): L1 serves
+# LAUNCH_ARCH at full width at the launcher's defaults, (requests, prompt,
+# new tokens, slots) = LAUNCH_L1 with a cache of prompt + new + 1; L2 every
+# arch at ``--smoke --requests 2 --batch-slots 2``.  llava's 8-token image
+# prefix puts L2's last six decode steps past that cache
+LAUNCH_ARCH = "qwen2-0.5b"
+LAUNCH_L1 = (8, 32, 16, 4)
+LAUNCH_L2 = (2, 32, 16, 2)
+LAUNCH_PAST = "llava-next-mistral-7b"
+# the faults planted on the card side: (the check they run in, the gates
+# each must break; every other gate of that run must pass).  All run in
+# float32, where the tokens must equal the host's: the decode faults on
+# LAUNCH_PAST in L2, the flash fault in L1
+LAUNCH_FAULTS = {"decode_row_wrapped": ("L2", ("logits", "tokens")),
+                 "rope_at_clamped_row": ("L2", ("logits", "tokens")),
+                 "flash_layer_zeroed": ("L1", ("tokens",))}
+LAUNCH_LINE = re.compile(r"\[serve\] (\d+) requests, (\d+) tokens in "
+                         r"([\d.]+)s \(([\d.]+) tok/s\) — stats (\{.*\})$")
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -2070,6 +2109,21 @@ def planted_tile_faults(q, k, v, exact):
                             f"{excess} x the bound, within it")
 
 
+def planted_head_fault(q, k, v, exact, causal):
+    """At a wide query group the bf16 check must reject a kernel that maps
+    the flattened q * R rows to the wrong heads: its output with the R
+    heads of each group rotated by one must read above the element
+    bound."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    out = flash_attention_fwd(q, k, v, causal=causal).roll(1, dims=3)
+    excess = bf16_excess(out, *exact)
+    print(f"flash_attention planted fault heads_rotated at "
+          f"{tuple(q.shape)} causal={causal}: element bound max |err| / "
+          f"bound = {excess:.4f}", flush=True)
+    check(excess > 1.0, f"flash_attention: planted fault heads_rotated "
+                        f"reads {excess} x the bound, within it")
+
+
 def sdpa_inputs(q, k, v):
     """q, k, v in scaled_dot_product_attention's (B, heads, S, hd) layout,
     the G x R query heads in group order."""
@@ -2105,9 +2159,10 @@ def time_flash(shape, dev, label="the shape ServeEngine's prefill gives it"):
 
 
 def flash_phase(dev):
-    """(a) the flash kernel against its plain version at the test shapes
-    and the MoE and VLM prefill shapes (with the planted tile faults at
-    the ragged VLM one), then timed at qwen2-0.5b's prefill shape beside
+    """(a) the flash kernel against its plain version at the test shapes,
+    the MoE and VLM prefill shapes (with the planted tile faults at the
+    ragged VLM one) and the wide query groups (R = 16 and 48, with a
+    planted head fault in bf16), then timed at qwen2-0.5b's prefill shape beside
     the plain version and scaled_dot_product_attention (the library
     yardstick, never on the port's path), and at the served and the MoE
     and VLM prefill shapes."""
@@ -2123,6 +2178,8 @@ def flash_phase(dev):
                 if (shape, causal, dtype) == (FLASH_VLM, True,
                                               torch.bfloat16):
                     planted_tile_faults(q, k, v, exact)
+                if shape in FLASH_WIDE_R and dtype == torch.bfloat16:
+                    planted_head_fault(q, k, v, exact, causal)
                 del q, k, v, exact
     time_flash(FLASH_SERVED, dev)
     time_flash(FLASH_MOE, dev, f"{MOE_ARCH}'s {MOE_B} x {MOE_S} prefill")
@@ -2176,64 +2233,89 @@ def serve_max_len(cfg, prompt, new):
     return cfg.n_image_tokens + prompt + new
 
 
-def plain_serve(dev, cfg, params, spec):
-    """The requests of ``spec`` (requests, prompt, new tokens, slots)
-    served by the engine built without the kernel (the reference engine's
-    build).  Returns its tokens and, per request, the logits over the real
-    vocabulary from which it chose each token, read off the engine's own
-    prefill and decode calls: per wave of ``slots`` requests, each
-    request's prefill, then one decode step over the wave per further
-    token.  Each call must be the one that schedule expects, told by the
-    tokens it was fed (a prefill the request's prompt, decode step t each
-    wave member's token t), or it raises ``SmokeFailure``."""
-    from repro_torch.serve import ServeEngine
-    n, prompt, new, slots = spec
-    plain = ServeEngine(cfg, params, batch_slots=slots,
-                        max_len=serve_max_len(cfg, prompt, new),
-                        use_kernel=False, device=dev)
-    model, rows = plain.model, []
+@contextlib.contextmanager
+def served_logits():
+    """Every ``ServeEngine`` built inside the block keeps, in the list it
+    yields, each prefill and decode call of its model: (kind, the tokens
+    fed, the float32 logits over the real vocabulary)."""
+    from repro_torch.serve import engine
+    real = engine.ServeEngine.__init__
+    rows = []
 
-    def keep(fn, kind):
-        def call(*args, **kwargs):
-            cache, logits = fn(*args, **kwargs)
-            fed = args[1]["tokens"] if kind == "prefill" else args[2]
-            rows.append((kind, fed.reshape(-1).tolist(),
-                         logits[:, :cfg.vocab_size].float()))
-            return cache, logits
-        return call
-    model.prefill = keep(model.prefill, "prefill")
-    model.decode = keep(model.decode, "decode")
-    reqs = serve_requests(cfg, n, prompt, new)
-    ref = plain.run(reqs)
+    def recording(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        vocab = self.cfg.vocab_size
+
+        def keep(fn, kind):
+            def call(*a, **k):
+                cache, logits = fn(*a, **k)
+                fed = a[1]["tokens"] if kind == "prefill" else a[2]
+                rows.append((kind, fed.reshape(-1).tolist(),
+                             logits[:, :vocab].float()))
+                return cache, logits
+            return call
+        self.model.prefill = keep(self.model.prefill, "prefill")
+        self.model.decode = keep(self.model.decode, "decode")
+    engine.ServeEngine.__init__ = recording
+    try:
+        yield rows
+    finally:
+        engine.ServeEngine.__init__ = real
+
+
+def logits_by_request(cfg, rows, reqs, out, slots, new):
+    """Request id -> the logits from which the engine chose each of its
+    tokens ``out``, read off its model calls ``rows``: per wave of
+    ``slots`` requests, each request's prefill, then one decode step over
+    the wave per further token.  Each call must be the one that schedule
+    expects, told by the tokens it was fed (a prefill the request's
+    prompt, decode step t each wave member's token t), or it raises
+    ``SmokeFailure``."""
     logits, it = {}, iter(rows)
 
     def take(kind, fed):
         got = next(it, None)
         check(got is not None and got[:2] == (kind, fed),
-              f"serve {cfg.name}: the plain engine's model calls do not "
+              f"serve {cfg.name}: the engine's model calls do not "
               f"follow its waves (expected a {kind} fed {fed[:8]}, got "
               f"{None if got is None else (got[0], got[1][:8])})")
         return got[2]
-    for w in range(0, n, slots):
+    for w in range(0, len(reqs), slots):
         wave = reqs[w:w + slots]
         for r in wave:
             logits[r.rid] = [take("prefill", r.prompt.tolist())[0]]
         for t in range(new - 1):
-            row = take("decode", [ref[r.rid][t] for r in wave])
+            row = take("decode", [out[r.rid][t] for r in wave])
             for i, r in enumerate(wave):
                 logits[r.rid].append(row[i])
-    check(next(it, None) is None, f"serve {cfg.name}: the plain engine made "
+    check(next(it, None) is None, f"serve {cfg.name}: the engine made "
                                   "more model calls than its waves")
-    return ref, logits
+    return logits
+
+
+def plain_serve(dev, cfg, params, spec):
+    """The requests of ``spec`` (requests, prompt, new tokens, slots)
+    served by the engine built without the kernel (the reference engine's
+    build).  Returns its tokens and, per request, the logits over the real
+    vocabulary from which it chose each token (``logits_by_request``)."""
+    from repro_torch.serve import ServeEngine
+    n, prompt, new, slots = spec
+    reqs = serve_requests(cfg, n, prompt, new)
+    with served_logits() as rows:
+        ref = ServeEngine(cfg, params, batch_slots=slots,
+                          max_len=serve_max_len(cfg, prompt, new),
+                          use_kernel=False, device=dev).run(reqs)
+    return ref, logits_by_request(cfg, rows, reqs, ref, slots, new)
 
 
 def compare_served(dev, cfg, params, out, spec=None, plain=None, label=""):
-    """The tokens ``out`` served with the kernel against the same requests
-    served by the engine built without it (``plain_serve``, or its result
-    ``plain``).  Each request's tokens must be equal, or part where the
-    plain path's two candidates are a near-tie: their logits, in the plain
-    engine's own step, within ``PREFILL_LIMIT`` (the kernel-vs-plain gap
-    allowed for the dtype) of the logits' largest magnitude."""
+    """The tokens ``out`` under test against a baseline serving the same
+    requests: the engine built without the kernel (``plain_serve``), or
+    the result ``plain`` of such a run.  Each request's tokens must be
+    equal, or part where the baseline's two candidates are a near-tie:
+    their logits, in the baseline's own step, within ``PREFILL_LIMIT``
+    (the kernel-vs-plain gap allowed for the dtype) of the logits' largest
+    magnitude."""
     spec = spec or SERVE_SPEC
     ref, logits = plain or plain_serve(dev, cfg, params, spec)
     check(sorted(out) == sorted(ref) and all(
@@ -2251,15 +2333,15 @@ def compare_served(dev, cfg, params, out, spec=None, plain=None, label=""):
         a, b = ref[rid][t], out[rid][t]
         tie = float((lg[a] - lg[b]).abs() / lg.abs().max())
         print(f"serve {cfg.name}{label} {cfg.dtype}: request {rid} first "
-              f"differs at token {t} (plain {a}, kernel {b}); their logits "
-              f"differ by {tie:.3e} of scale (near-tie limit {limit})",
-              flush=True)
-        check(tie <= limit, f"serve {cfg.dtype}: kernel and plain engines "
-                            f"differ at request {rid} token {t}, not a "
-                            f"near-tie ({tie} > {limit})")
-    print(f"serve {cfg.name}{label} {cfg.dtype}: kernel and plain engines "
-          f"served the same tokens for {same} of {len(ref)} requests",
-          flush=True)
+              f"differs at token {t} (baseline {a}, tested {b}); their "
+              f"logits differ by {tie:.3e} of scale (near-tie limit "
+              f"{limit})", flush=True)
+        check(tie <= limit, f"serve {cfg.dtype}: tested and baseline "
+                            f"engines differ at request {rid} token {t}, "
+                            f"not a near-tie ({tie} > {limit})")
+    print(f"serve {cfg.name}{label} {cfg.dtype}: tested and baseline "
+          f"engines served the same tokens for {same} of {len(ref)} "
+          "requests", flush=True)
 
 
 @contextlib.contextmanager
@@ -2274,10 +2356,11 @@ def swapped(module, name, fn):
 
 
 @contextlib.contextmanager
-def planted(fault, layer=12):
+def planted(fault, layer=12, every=None):
     """A fault in the kernel path: the attention output of ``layer`` (the
-    ``layer``-th flash call from 0) zeroed, or, for "no_causal_mask", the
-    causal mask off in every layer."""
+    ``layer``-th flash call from 0; with ``every``, each call ``layer``
+    modulo ``every``: that layer in every prefill) zeroed, or, for
+    "no_causal_mask", the causal mask off in every layer."""
     from repro_torch.kernels.flash_attention import ops
     real = ops.flash_attention
     calls = []
@@ -2287,7 +2370,9 @@ def planted(fault, layer=12):
         if fault == "no_causal_mask":
             return real(q, k, v, causal=False)
         out = real(q, k, v, causal=causal)
-        return torch.zeros_like(out) if len(calls) == layer + 1 else out
+        hit = ((len(calls) - 1) % every == layer if every
+               else len(calls) == layer + 1)
+        return torch.zeros_like(out) if hit else out
     with swapped(ops, "flash_attention", faulty):
         yield
 
@@ -2409,7 +2494,7 @@ class RoutingLog:
                   f"routing replay: call {len(used)} routes {want}, the "
                   f"recorded decision is {tuple(idx.shape)}")
             used.append(None)
-            return idx
+            return idx.to(probs.device)
         with self._route(replaying):
             yield self
         check(len(used) == len(self.calls),
@@ -3858,6 +3943,254 @@ def encdec_phase(dev):
     return {}
 
 
+@contextlib.contextmanager
+def launch_fault(fault, cfg):
+    """A fault in the code under test, for the card's side only: the
+    decode step's K/V write at row ``cache_len % Smax`` (wrapping to the
+    first rows) in place of the clamp to the last row; RoPE at the clamped
+    row in place of ``cache_len``; or the middle layer's flash output
+    zeroed in every prefill (``planted``)."""
+    from repro_torch.models import layers as L
+    if fault == "flash_layer_zeroed":
+        with planted(fault, cfg.num_layers // 2, every=cfg.num_layers):
+            yield
+        return
+
+    def decode(p, x, cfg, k_cache, v_cache, cache_len):
+        clamped = min(cache_len, k_cache.shape[1] - 1)
+        row = (cache_len % k_cache.shape[1]
+               if fault == "decode_row_wrapped" else clamped)
+        pos = clamped if fault == "rope_at_clamped_row" else cache_len
+        q, k, v = L._qkv(p, x, cfg, torch.full(
+            (x.shape[0], 1), pos, dtype=torch.long, device=x.device))
+        k_cache[:, row] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, row] = v[:, 0].to(v_cache.dtype)
+        out = L.mha(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                    causal=False, kv_len=cache_len + 1, block_size=None)
+        return L._out_proj(p, out, x.dtype), (k_cache, v_cache)
+    with swapped(L, "apply_attention_decode", decode):
+        yield
+
+
+def launcher_line(line):
+    """(requests, tokens, stats, wall s, tokens/s) of the launcher's line."""
+    m = LAUNCH_LINE.match(line)
+    check(m is not None, f"launcher: not its line: {line!r}")
+    return (int(m[1]), int(m[2]), ast.literal_eval(m[5]), float(m[3]),
+            float(m[4]))
+
+
+def launch_run(dev, cfg, params, spec, fault=None, routing=None):
+    """``launch.serve.serve`` on ``spec`` (requests, prompt, new tokens,
+    slots) on ``dev``, with ``fault`` planted (``launch_fault``), inside
+    ``routing()`` where given (a ``RoutingLog``'s record or replay), and
+    every port kernel's count 0 just before.  Its printed line must match
+    what it returns.  Returns its tokens, stats, wall s, launches and each
+    request's logits (``logits_by_request``)."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve as launcher
+    n, prompt, new, slots = spec
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    printed = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        if fault:
+            stack.enter_context(launch_fault(fault, cfg))
+        if routing:
+            stack.enter_context(routing())
+        rows = stack.enter_context(served_logits())
+        with contextlib.redirect_stdout(printed):
+            out, stats, wall = launcher.serve(
+                cfg, params, requests=n, prompt_len=prompt, max_new=new,
+                batch_slots=slots, device=dev)
+    line = launcher_line(printed.getvalue().strip().splitlines()[-1])
+    check(line[:3] == (len(out), sum(map(len, out.values())), stats),
+          f"launcher {cfg.name}: printed {line[:3]}, served {len(out)} "
+          f"requests, stats {stats}")
+    return {"out": out, "stats": stats, "wall": wall,
+            "launches": {k.__name__: k.launches for k in counted},
+            "logits": logits_by_request(cfg, rows, serve_requests(
+                cfg, n, prompt, new), out, slots, new)}
+
+
+def past_cache_gap(cfg, spec, run, host):
+    """The largest gap, over the host's largest magnitude, between the
+    run's and the host's logits at every decode step that wrote past the
+    launcher's cache (prompt + new + 1 positions behind the image prefix),
+    in each request whose tokens up to that step equal the host's; and
+    how many steps it compared."""
+    _, prompt, new, _ = spec
+    # token t comes from the decode step at position image + prompt + t - 1
+    max_len = prompt + new + 1
+    first = max_len - cfg.n_image_tokens - prompt + 1
+    gaps = [gap([run["logits"][rid][t].cpu()], [host["logits"][rid][t]])
+            for rid in host["out"] for t in range(first, new)
+            if run["out"][rid][:t] == host["out"][rid][:t]]
+    return max(gaps, default=0.0), len(gaps)
+
+
+def launch_gates(cfg, spec, run, host, label):
+    """Each gate of a card run against the host CPU's run of the same
+    weights: {gate: None if it passes, else why not}.
+      stats     the engine's stats equal the host's and the schedule's;
+      launches  flash once a layer a prefill on the dense stack (dense,
+                moe, vlm), no other kernel;
+      tokens    float32 equal; bf16 equal or a near-tie in the host's own
+                step (``compare_served``);
+      logits    (llava) every decode step past the cache within
+                ``PREFILL_LIMIT`` of the host's."""
+    n, prompt, new, slots = spec
+    want = {"prefills": n, "decode_steps": -(-n // slots) * (new - 1),
+            "tokens_out": n * new}
+    flash = cfg.num_layers * n if cfg.family in ("dense", "moe",
+                                                 "vlm") else 0
+    launches = {"masked_min_rows": 0, "flash_attention_fwd": flash,
+                "ssd_scan": 0}
+    gates = {
+        "stats": None if run["stats"] == host["stats"] == want else
+        f"stats {run['stats']}, host {host['stats']}, schedule {want}",
+        "launches": None if run["launches"] == launches else
+        f"launches {run['launches']}, not {launches}"}
+    if cfg.dtype == "float32":
+        gates["tokens"] = None if run["out"] == host["out"] else \
+            "float32 tokens differ from the host CPU's"
+    else:
+        try:
+            compare_served(None, cfg, None, run["out"], spec,
+                           (host["out"], host["logits"]),
+                           f"{label} (card vs host CPU)")
+            gates["tokens"] = None
+        except SmokeFailure as exc:
+            gates["tokens"] = str(exc)
+    if cfg.name.startswith(LAUNCH_PAST):
+        read, steps = past_cache_gap(cfg, spec, run, host)
+        limit = PREFILL_LIMIT[cfg.dtype]
+        print(f"launcher {cfg.name} {cfg.dtype}: logits of the decode steps "
+              f"past the cache, card vs host CPU: gap={read:.3e} (limit "
+              f"{limit}) over {steps} steps", flush=True)
+        gates["logits"] = None if steps and read <= limit else \
+            f"logits past the cache read {read} over {steps} steps"
+    return gates
+
+
+def launch_check(dev, cfg, params, host_params, spec, check_name,
+                 faults=()):
+    """``cfg`` served on ``spec`` on ``dev`` and on the host CPU (the code
+    as it stands, the same weights; an MoE card run replays the host's
+    routing, as the serve phases replay the plain run's): every gate of
+    ``launch_gates`` must pass; then each fault of ``faults``, planted on the card's side only,
+    must break the gates ``LAUNCH_FAULTS`` lists for it and no other.
+    Returns the card run."""
+    # an MoE card run takes the host run's routing (RoutingLog)
+    log = RoutingLog() if cfg.moe else None
+    host = launch_run(torch.device("cpu"), cfg, host_params, spec,
+                      routing=log and log.record)
+    run = launch_run(dev, cfg, params, spec, routing=log and log.replay)
+    tokens = sum(map(len, run["out"].values()))
+    label = f" launcher {check_name}"
+    print(f"launcher {check_name} {cfg.name} {cfg.dtype}: {tokens} tokens "
+          f"in {run['wall']:.3f} s = {tokens / run['wall']:.1f} tokens/s on "
+          f"the card, {host['wall']:.3f} s on the host CPU; stats "
+          f"{run['stats']}, launches {run['launches']}", flush=True)
+    gates = launch_gates(cfg, spec, run, host, label)
+    failed = {g: why for g, why in gates.items() if why}
+    check(not failed, f"launcher {check_name} {cfg.name} {cfg.dtype}: "
+                      f"gates failed: {failed}")
+    for fault in faults:
+        want = LAUNCH_FAULTS[fault][1]
+        faulted = launch_run(dev, cfg, params, spec, fault,
+                             log and log.replay)
+        got = launch_gates(cfg, spec, faulted, host, label)
+        broken = sorted(g for g, why in got.items() if why)
+        print(f"launcher {check_name} {cfg.name} {cfg.dtype} planted fault "
+              f"{fault}: broke {broken} (must break {sorted(want)}); its "
+              f"run took {faulted['wall']:.3f} s", flush=True)
+        check(broken == sorted(want), f"launcher: planted fault {fault} "
+                                      f"broke {broken}, not {sorted(want)}")
+    return run
+
+
+def launch_faults(where):
+    """The faults ``LAUNCH_FAULTS`` plants in check ``where`` (L1 or L2)."""
+    return [f for f, (at, _) in LAUNCH_FAULTS.items() if at == where]
+
+
+def launch_checks(dev, l1_cfg, l1_args, archs):
+    """The serving launcher on ``dev``:
+
+      L1  ``python -m repro_torch.launch.serve`` with ``l1_args`` in a
+          child process: its printed request and token counts and stats
+          are the schedule's.  Then ``launch.serve.serve`` on ``l1_cfg``'s
+          launcher weights (``seed_params``), in bf16 and float32, against
+          the host CPU's run on the same weights (``launch_check``), with
+          the flash fault planted in float32;
+      L2  every arch of ``archs`` at the launcher's ``--smoke`` sizes
+          (``LAUNCH_L2``) likewise, in float32 and bf16; ``LAUNCH_PAST``'s
+          decode steps past the cache also against the host's logits,
+          with the decode faults planted in float32.
+
+    Returns the flash launches of L1's bf16 run."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve as launcher
+    n, prompt, new, slots = LAUNCH_L1
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve"] + l1_args,
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    child_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launcher L1: python -m "
+                                f"repro_torch.launch.serve exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    got_n, got_tokens, stats, wall, rate = launcher_line(line)
+    print(f"launcher L1 {' '.join(l1_args)}: {line!r}; the process took "
+          f"{child_wall:.3f} s", flush=True)
+    want = {"prefills": n, "decode_steps": -(-n // slots) * (new - 1),
+            "tokens_out": n * new}
+    check((got_n, got_tokens, stats) == (n, n * new, want),
+          f"launcher L1: printed {got_n} requests, {got_tokens} tokens, "
+          f"stats {stats}; the schedule gives {n}, {n * new}, {want}")
+
+    params = launcher.seed_params(l1_cfg, dev)
+    host_params = _to(params, torch.device("cpu"))
+    flash = 0
+    for cfg in (l1_cfg, dataclasses.replace(l1_cfg, dtype="float32")):
+        faults = launch_faults("L1") if cfg.dtype == "float32" else ()
+        run = launch_check(dev, cfg, params, host_params, LAUNCH_L1, "L1",
+                           faults)
+        if cfg.dtype == "bfloat16":
+            flash = run["launches"]["flash_attention_fwd"]
+    del params, host_params
+
+    for arch in archs:
+        base = reduced(get_config(arch))
+        host_params = launcher.seed_params(base, "cpu")
+        params = _to(host_params, dev)
+        for dtype in ("float32", "bfloat16"):
+            faults = (launch_faults("L2") if arch == LAUNCH_PAST
+                      and dtype == "float32" else ())
+            launch_check(dev, dataclasses.replace(base, dtype=dtype), params,
+                         host_params, LAUNCH_L2, "L2", faults)
+    return flash
+
+
+def launch_phase(dev):
+    """(l) the serving launcher: L1 at full width on ``LAUNCH_ARCH``
+    (``launch_checks``), L2 on every arch at its ``--smoke`` sizes.
+    Returns L1's bf16 flash launches, by kernel and path."""
+    from repro_torch.configs import ARCHS, get_config
+    print(f"launcher: card {card_line()}", flush=True)
+    flash = launch_checks(dev, get_config(LAUNCH_ARCH),
+                          ["--arch", LAUNCH_ARCH, "--requests",
+                           str(LAUNCH_L1[0])], sorted(ARCHS))
+    return {("flash_attention_fwd", f"{LAUNCH_ARCH} launcher"): flash}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -4050,9 +4383,10 @@ def main() -> int:
     # llava-next-mistral-7b, flash attention in each prefill at hd 128;
     # then head_dim 80: the flash kernel there, stablelm-3b's serving and
     # the hybrid family (zamba2-2.7b: its loss runs both kernels); then the
-    # encdec family (whisper-medium), on which no kernel runs
+    # encdec family (whisper-medium), on which no kernel runs; then the
+    # serving launcher (qwen2-0.5b at full width, every arch at --smoke)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
-                  hybrid_phase, encdec_phase):
+                  hybrid_phase, encdec_phase, launch_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

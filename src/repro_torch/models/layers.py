@@ -295,13 +295,18 @@ def apply_attention_decode(p: Params, x: torch.Tensor, cfg,
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
                            cache_len: int):
     """One-token decode: x (B, 1, D); caches (B, Smax, G, hd).  Writes the
-    new key and value at ``cache_len`` in place (the reference returns
-    updated copies) and attends over the first ``cache_len + 1``."""
+    new key and value in place (the reference returns updated copies) at
+    row ``cache_len``, clamped to the last row ``Smax - 1`` as the
+    reference's ``lax.dynamic_update_slice_in_dim`` clamps its start, and
+    attends over the first ``cache_len + 1`` rows (every row, once past
+    the end).  RoPE takes the unclamped ``cache_len``, as in the
+    reference."""
     positions = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,
                            device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    k_cache[:, cache_len] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, cache_len] = v[:, 0].to(v_cache.dtype)
+    row = min(cache_len, k_cache.shape[1] - 1)
+    k_cache[:, row] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, row] = v[:, 0].to(v_cache.dtype)
     out = mha(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
               kv_len=cache_len + 1, block_size=None)
     return _out_proj(p, out, x.dtype), (k_cache, v_cache)

@@ -401,12 +401,11 @@ class Model(nn.Module):
     # ------------------------------------------------------------- decode
     def decode(self, params: Params, cache: Params, tokens):
         """One decode step. tokens: (B, 1) -> (cache, logits (B, V)); the
-        cache is updated in place and returned."""
+        cache is updated in place and returned.  Past a full K/V cache the
+        step writes its last row (``apply_attention_decode``) and
+        ``cache["len"]`` keeps counting, as in the reference."""
         cfg = self.cfg
         pos = cache["len"]
-        if cfg.family != "ssm" and pos >= cache["k"].shape[2]:
-            raise ValueError(f"decode: the cache of {cache['k'].shape[2]} "
-                             "positions is full")
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         x = L.apply_embed(params["embed"], tokens, cfg)
         if cfg.family == "encdec":

@@ -16,7 +16,9 @@ either way (the kernel computes the plain attention it replaces).  The
 moe and vlm families run the same dense stack, so their prefill launches
 the kernel once per layer too; a vlm request is prefilled behind
 ``n_image_tokens`` zero image embeddings, so ``max_len`` must cover the
-image prefix, the prompt and the new tokens.  For
+image prefix and the prompt (the prefill raises otherwise); decode steps
+past ``max_len`` overwrite the cache's last row, as the reference's do
+(``layers.apply_attention_decode``).  For
 the ssm family (Mamba-2) ``use_kernel`` changes nothing here: it reaches
 only ``forward`` and ``loss``, while prefill runs the chunked scan (it
 needs the final state) and decode the one-step recurrence, so serving
@@ -98,7 +100,7 @@ class ServeEngine:
                 dtype=torch.float32, device=self.device)
         if self.cfg.family == "vlm":
             # no image frontend: a zero image prefix, as the reference's
-            # engine serves it (``max_len`` must cover it)
+            # engine serves it (the prefill's ``max_len`` must cover it)
             batch["image_embeds"] = torch.zeros(
                 (1, self.cfg.n_image_tokens, self.cfg.d_model),
                 dtype=torch.float32, device=self.device)

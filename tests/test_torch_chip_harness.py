@@ -9,13 +9,16 @@ and launch counts) and serve phase on the reduced hybrid model, the
 dry-run-record phase (``record_phase``, host Python but for one fastsim
 call) passing and failing on a planted mismatch, and the whisper phase
 (``encdec_checks``: its gates G1-G4, the four planted faults, its launch
-counts) on reduced whisper-medium.  These run on the card
+counts) on reduced whisper-medium, and the serving launcher's checks
+(``launch_checks``: L1 and L2, the three planted faults, the launch
+counts).  These run on the card
 around the kernels; here each kernel's plain version runs in its
 place."""
 import dataclasses
 import importlib.util
 import math
 import os
+import re
 
 import pytest
 import torch
@@ -481,3 +484,41 @@ def test_encdec_checks_count_launches(cs, encdec, monkeypatch):
     cfg, params = encdec
     with pytest.raises(cs.SmokeFailure, match="launched on the encdec path"):
         cs.encdec_checks(torch.device("cpu"), cfg, params)
+
+
+@pytest.fixture
+def launch(cs, monkeypatch):
+    """The launcher phase with the CPU standing in for the card: L1 on
+    reduced qwen2-0.5b (``--smoke --device cpu`` in the child), L2 on a
+    dense, an moe and the vlm arch; the flash kernel's plain version runs
+    in its place, counting launches."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd,
+                                                     ops)
+
+    def counted(q, k, v, causal=True):
+        flash_attention_fwd.launches += 1
+        return attention_ref(q, k, v, causal=causal)
+    monkeypatch.setattr(ops, "flash_attention", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return reduced(get_config("qwen2-0.5b")), [
+        "--arch", "qwen2-0.5b", "--smoke", "--requests", "8", "--device",
+        "cpu"]
+
+
+def test_launch_checks_pass_and_each_fault_breaks_its_gates(cs, launch,
+                                                            capsys):
+    """Every gate passes unfaulted (the host against itself here), each
+    planted fault breaks the gates ``LAUNCH_FAULTS`` lists and no other
+    (the phase checks both), and L1 counts a flash launch a layer a
+    prefill."""
+    cfg, args = launch
+    archs = ["phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "qwen2-0.5b"]
+    assert cs.launch_checks(torch.device("cpu"), cfg, args, archs) == 16
+    out = capsys.readouterr().out
+    for fault, (where, gates) in cs.LAUNCH_FAULTS.items():
+        assert re.search(rf"launcher {where} .* planted fault {fault}: "
+                         rf"broke {re.escape(str(sorted(gates)))}", out)
+    assert "past the cache, card vs host CPU: gap=0.000e+00" in out
+    assert out.count("over 12 steps") == 2      # llava, float32 and bf16
+

@@ -7,7 +7,9 @@ in interpret mode, at tests/test_kernels.py's shapes and tolerances:
 2e-5 in float32 (summation order), 2e-2 in bfloat16 (the kernel rounds p
 to bf16 before the P.V product, the plain version the normalized
 probabilities), and at two head_dim-80 shapes (stablelm-3b's and zamba2's
-head dim: 32 heads a KV group of 1, and GQA).  A ragged length (S = 200),
+head dim: 32 heads a KV group of 1, and GQA), and at R = 16 and R = 48
+query heads a KV group at hd 128 (qwen3-moe-235b-a22b's and granite-34b's
+group ratios, reduced widths).  A ragged length (S = 200),
 which the Pallas kernel asserts on, is held against the reference's
 ``attention_ref``.  The CUDA
 kernel itself runs only on the card (``-m cuda``).
@@ -22,9 +24,12 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_fwd)
 
-# (B, S, G, R, hd): tests/test_kernels.py's shapes, then a ragged one
+# (B, S, G, R, hd): tests/test_kernels.py's shapes, two at hd 80, two at
+# wide query groups (R = 16, R = 48), then a ragged one
 SHAPES = [(1, 128, 1, 1, 64), (2, 256, 2, 4, 64), (1, 256, 1, 7, 32),
-          (1, 512, 4, 2, 128), (1, 128, 32, 1, 80), (2, 256, 2, 3, 80)]
+          (1, 512, 4, 2, 128), (1, 128, 32, 1, 80), (2, 256, 2, 3, 80),
+          (1, 256, 4, 16, 128), (1, 256, 1, 48, 128)]
+WIDE_R = 16
 RAGGED = (1, 200, 2, 7, 64)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PORT_FNS = {"attention_ref": attention_ref, "flash_attention": flash_attention}
@@ -104,6 +109,10 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_inputs():
 @pytest.mark.parametrize("shape", SHAPES + [RAGGED, (2, 77, 3, 5, 32)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_kernel_matches_plain_version(shape, causal, dtype):
+    """The kernel element by element against the plain version.  At
+    R >= 16 query heads a group, a planted fault (the R heads of each group
+    rotated by one, a wrong q * R row flattening) must read above the same
+    limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     q, k, v = (torch.from_numpy(a).cuda().to(getattr(torch, dtype))
@@ -112,10 +121,13 @@ def test_cuda_kernel_matches_plain_version(shape, causal, dtype):
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == before + 1
-    want = attention_ref(q, k, v, causal=causal)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(),
+    want = attention_ref(q, k, v, causal=causal).float().cpu().numpy()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want,
                                atol=TOL[dtype], rtol=TOL[dtype])
+    if shape[3] >= WIDE_R:
+        rotated = got.roll(1, dims=3).float().cpu().numpy()
+        excess = np.abs(rotated - want) - TOL[dtype] * (1 + np.abs(want))
+        assert excess.max() > 0
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ from repro_torch.serve import (HPLPredictionService, PredictionService,
                                ServeEngine, predict_top500, warm)
 from repro_torch.campaign import CampaignSpec, run_campaign
 from repro_torch.faults import FaultSpec, sweep_faults
+from repro_torch.launch import serve as launch_serve
 from repro_torch.ft import simulate_fault_impact
 from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
                                    get_platform)
@@ -43,6 +44,7 @@ sys.modules["jax"] = None            # any import of jax now fails
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
+assert {"repro_torch.launch", "repro_torch.launch.serve"} <= set(names)
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -205,6 +207,8 @@ def _entry_points():
         "serve.predict_top500": lambda: predict_top500(sample_list_path()),
         "run_campaign": lambda: run_campaign(CampaignSpec.make(
             "one", workloads=["hpl"], platforms=["bdw-local"])),
+        "launch.serve.main": lambda: launch_serve.main(
+            ["--arch", "qwen2-0.5b", "--smoke"]),
     }
 
 

@@ -306,7 +306,15 @@ def test_convert_rejects_a_tree_that_does_not_fit(ref_params):
 
 
 def test_prefill_takes_every_prompt_length_and_refuses_overflow(ref_params):
-    _, cfg = _cfg_pair("float32")
+    """A prefill longer than ``max_len`` raises (the reference's raises
+    too); decode steps past a full cache write its last row, as the
+    reference's ``dynamic_update_slice`` clamps, with RoPE and the length
+    unclamped: 6 steps from position 13 of 16, logits and cache against
+    the reference's."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import build_model as jbuild
+    jcfg, cfg = _cfg_pair("float32")
     params = lm_params_from_reference(ref_params, cfg, device="cpu")
     model = build_model(cfg, use_kernel=True, device="cpu")
     with torch.inference_mode():
@@ -319,6 +327,16 @@ def test_prefill_takes_every_prompt_length_and_refuses_overflow(ref_params):
             model.prefill(params, {"tokens": torch.zeros(1, 17,
                                                          dtype=torch.long)},
                           max_len=16)
-        cache["len"] = 16
-        with pytest.raises(ValueError, match="full"):
-            model.decode(params, cache, torch.zeros(1, 1, dtype=torch.long))
+    jmodel = jbuild(jcfg)
+    jcache, _ = jmodel.prefill(ref_params, {"tokens": jnp.asarray(
+        _tokens(13, (1, 13), cfg.vocab_size))}, max_len=16)
+    decode = jax.jit(jmodel.decode)
+    for step in range(6):
+        nt = _tokens(200 + step, (1, 1), cfg.vocab_size)
+        jcache, jlogits = decode(ref_params, jcache, jnp.asarray(nt))
+        with torch.inference_mode():
+            cache, logits = model.decode(params, cache, torch.from_numpy(nt))
+        assert cache["len"] == int(jcache["len"]) == 14 + step
+        for got, want in ((logits, jlogits), (cache["k"], jcache["k"]),
+                          (cache["v"], jcache["v"])):
+            assert _gap(got, want) <= LIMIT["float32"], step

@@ -201,6 +201,24 @@ after:
     ``cache_len % max_len``, RoPE at the clamped row, the middle qwen2
     layer's flash output zeroed in every prefill) must each break the
     gates ``LAUNCH_FAULTS`` lists and no other.
+  * The host side of training: C1 the data pipeline's global batches
+    of qwen2-0.5b's vocabulary (4 x 2048 tokens, steps 0 and 1) against
+    the reference's SHA-256 digests, every dp of 1, 2 and 4 tiling them;
+    then ``make_train_state`` of qwen2-0.5b at full width (494,147,456
+    float32 parameters and AdamW's m and v, 5.93 GB, moments filled from
+    the seed) on the card, ``Model.loss`` on step 0's batch (flash once a
+    layer), a host snapshot, ``save_checkpoint`` of step 1,
+    ``AsyncCheckpointer.save`` of step 2 with a second loss while it
+    writes and every m leaf updated in place before ``wait``, every live
+    leaf zeroed, and both steps restored on the card: C2 the restores
+    equal the snapshot and their files, in the reference's key order and
+    on storage of their own; C3 the loss on the restored parameters
+    equals the first bit for bit; C4 step 2's file is the state as
+    ``save`` found it.  Save, async and restore seconds and GB/s, the
+    write's overlap with the loss and the disk's free space are printed.
+    Three faults planted on reduced qwen2-0.5b (a bit flipped in a saved
+    file, m and v restored crosswise, the async host copy left to its
+    thread) must each break the gates ``CKPT_FAULTS`` lists and no other.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -218,10 +236,12 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -1006,6 +1026,32 @@ LAUNCH_FAULTS = {"decode_row_wrapped": ("L2", ("logits", "tokens")),
                  "flash_layer_zeroed": ("L1", ("tokens",))}
 LAUNCH_LINE = re.compile(r"\[serve\] (\d+) requests, (\d+) tokens in "
                          r"([\d.]+)s \(([\d.]+) tok/s\) — stats (\{.*\})$")
+# The host side of training: the data pipeline and checkpoints of a
+# full-width qwen2-0.5b train state (494,147,456 float32 parameters and
+# AdamW's m and v).  C1: the SHA-256 of each global batch's int64 bytes,
+# computed from the reference's ``repro.data``
+# (tests/test_torch_data.py recomputes them)
+CKPT_ARCH = "qwen2-0.5b"
+CKPT_DATA = {"vocab_size": 151936, "seq_len": 2048, "global_batch": 4,
+             "seed": 0}
+REFERENCE_CKPT_BATCH_SHA256 = {
+    0: "aef5d2593f50c4fc503d860e088fe3fc8e76d9e40b6c4ada59e6fa2aaed4dd3a",
+    1: "882a7b9d1d54fabd5ad63f77e19dde3f1cd3a6d4bc5470f31fb30979d0574b88"}
+CKPT_DP = (1, 2, 4)
+# the faults' runs: reduced qwen2-0.5b on batches of this pipeline
+CKPT_FAULT_DATA = {"vocab_size": 512, "seq_len": 256, "global_batch": 4,
+                   "seed": 0}
+# the step count a saved state carries (a state mid-run: its moments are
+# filled from the seed as well, so that m and v differ)
+CKPT_MID_STEP = 7
+# the faults planted in the code under test, each with the gates it must
+# break (every other gate of that run must pass): a high exponent bit of
+# one element of the final norm's scale flipped in step 1's file after the
+# save; restore handing back m and v crosswise; the async save taking its
+# host copy in its thread
+CKPT_FAULTS = {"flip_bit": ("C2", "C3"), "swap_moments": ("C2",),
+               "lazy_snapshot": ("C4",)}
+CKPT_FLIP = (".params/final_norm/scale", 0, 29)
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -4191,6 +4237,331 @@ def launch_phase(dev):
     return {("flash_attention_fwd", f"{LAUNCH_ARCH} launcher"): flash}
 
 
+def ckpt_leaves(state):
+    """{key: leaf} of a train state in the reference's flatten order (the
+    ``NamedTuple``'s fields as ``.params``, ``.opt``, ``.step``; dict keys
+    sorted), written here apart from the port's own flatten so that the
+    file's key order is held to an independent one."""
+    out = {}
+
+    def walk(tree, key):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{key}/{k}")
+        else:
+            out[key] = tree
+    for field in state._fields:
+        walk(getattr(state, field), f".{field}")
+    return out
+
+
+def ckpt_data_gate():
+    """C1: the port's pipeline at ``CKPT_DATA``: each global batch's SHA-256
+    equals the reference's, and the shards of every dp in ``CKPT_DP``
+    concatenate to it.  Returns the batches by step."""
+    import numpy as np
+    from repro_torch.data import DataConfig, SyntheticLM
+    t0 = time.perf_counter()
+    ds = SyntheticLM(DataConfig(**CKPT_DATA))
+    batches = {}
+    for step, want in REFERENCE_CKPT_BATCH_SHA256.items():
+        batch = ds.global_batch_at(step)
+        digest = hashlib.sha256(batch.tobytes()).hexdigest()
+        check(batch.dtype == np.int64 and digest == want,
+              f"ckpt C1: step {step}'s batch ({batch.dtype}) has SHA-256 "
+              f"{digest}, the reference's {want}")
+        for dp in CKPT_DP:
+            parts = np.concatenate([ds.shard_at(step, r, dp)
+                                    for r in range(dp)])
+            check(np.array_equal(parts, batch),
+                  f"ckpt C1: step {step}'s {dp} shards differ from the "
+                  "global batch")
+        batches[step] = batch
+    print(f"ckpt C1 data {CKPT_DATA}: steps {sorted(batches)} SHA-256 equal "
+          f"to the reference's, dp {CKPT_DP} shards tile each; "
+          f"{time.perf_counter() - t0:.3f} s on the host", flush=True)
+    return batches
+
+
+def device_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ckpt_loss(model, params, tokens, dev):
+    """``Model.loss`` of ``tokens`` and its flash launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    flash_attention_fwd.launches = 0
+    loss = model.loss(params, {"tokens": tokens})[0]
+    device_sync(dev)
+    return loss, flash_attention_fwd.launches
+
+
+def flip_bit(npz, key, index, bit):
+    """Flip bit ``bit`` of element ``index`` of the float32 leaf ``key``
+    in a checkpoint's ``arrays.npz``."""
+    import numpy as np
+    with np.load(npz) as data:
+        arrays = {k: data[k] for k in data.files}
+    arrays[key].reshape(-1).view(np.uint32)[index] ^= np.uint32(1 << bit)
+    np.savez(npz, **arrays)
+
+
+@contextlib.contextmanager
+def ckpt_fault(fault):
+    """A fault in the code under test (``flip_bit`` is planted in the file
+    by ``ckpt_run``): restore handing back the m and v trees crosswise,
+    or ``AsyncCheckpointer.save`` leaving the host copy to its thread
+    (which writes the live state as it finds it then)."""
+    import repro_torch.checkpoint as ckpt
+    from repro_torch.checkpoint import checkpoint as impl
+    if fault == "swap_moments":
+        real = ckpt.restore_checkpoint
+
+        def crossed(*args, **kwargs):
+            out = real(*args, **kwargs)
+            return out._replace(opt=dict(out.opt, m=out.opt["v"],
+                                         v=out.opt["m"]))
+        with swapped(ckpt, "restore_checkpoint", crossed):
+            yield
+    elif fault == "lazy_snapshot":
+        def lazy(self, step, state):
+            self.wait()
+
+            def work():
+                try:
+                    impl.save_checkpoint(self.ckpt_dir, step, state,
+                                         keep_last=self.keep_last)
+                except BaseException as e:
+                    self._error = e
+            self._thread = threading.Thread(target=work, daemon=True)
+            self._thread.start()
+        with swapped(impl.AsyncCheckpointer, "save", lazy):
+            yield
+    else:
+        yield
+
+
+def ckpt_gates(dev, tmp, live, snap, r1, r2, losses):
+    """{gate: None if it passes, else why not}:
+      C2  the synchronous save and restore round-trip the state: step 1's
+          manifest lists the leaves in the reference's order with the
+          snapshot's shapes and dtypes; each leaf restored from step 1
+          equals the snapshot in dtype and value, and each from step 2
+          equals its file's array; none shares storage with the live
+          state;
+      C3  the loss on the restored step 1 parameters, and the second loss
+          on the live ones, equal the first bit for bit;
+      C4  the async save wrote the state as it was when ``save`` returned:
+          step 2's file equals the snapshot leaf for leaf and its manifest
+          lists what step 1's does."""
+    import numpy as np
+    c2, c4 = [], []
+    m1 = json.loads((tmp / "step_1" / "manifest.json").read_text())
+    m2 = json.loads((tmp / "step_2" / "manifest.json").read_text())
+    if list(m1["leaves"]) != list(snap):
+        c2.append("step 1's manifest lists its leaves out of order")
+    live_ptrs = {t.untyped_storage().data_ptr() for t in live.values()}
+    got1, got2 = ckpt_leaves(r1), ckpt_leaves(r2)
+    with np.load(tmp / "step_2" / "arrays.npz") as file2:
+        for key, want in snap.items():
+            meta = {"shape": list(want.shape),
+                    "dtype": str(want.dtype).removeprefix("torch.")}
+            if m1["leaves"].get(key) != meta:
+                c2.append(f"{key}: step 1's manifest {m1['leaves'].get(key)}")
+            for got in (got1[key], got2[key]):
+                if got.device != dev or \
+                        got.untyped_storage().data_ptr() in live_ptrs:
+                    c2.append(f"{key}: restored on {got.device}, or on the "
+                              "live state's storage")
+            t1 = got1[key].cpu()
+            if t1.dtype != want.dtype or not torch.equal(t1, want):
+                c2.append(f"{key}: step 1 restored differs from the "
+                          "snapshot")
+            arr = torch.from_numpy(file2[key])
+            t2 = got2[key].cpu()
+            if t2.dtype != arr.dtype or not torch.equal(t2, arr):
+                c2.append(f"{key}: step 2 restored differs from its file")
+            if arr.dtype != want.dtype or not torch.equal(arr, want):
+                c4.append(f"{key}: step 2's file differs from the snapshot")
+    if m2["leaves"] != m1["leaves"]:
+        c4.append("step 2's manifest differs from step 1's")
+    l0, l1, l2 = losses
+    c3 = [] if torch.equal(l0, l2) and torch.equal(l0, l1) else [
+        f"losses {float(l0)!r} (live), {float(l1)!r} (live, during the "
+        f"async write), {float(l2)!r} (restored step 1)"]
+    return {gate: (f"{len(why)} failures, first {why[:3]}" if why else None)
+            for gate, why in (("C2", c2), ("C3", c3), ("C4", c4))}
+
+
+def ckpt_run(dev, cfg, tokens, tmp, fault=None, hold=False):
+    """One round trip of ``cfg``'s train state through checkpoints under
+    ``tmp`` on ``dev``, with ``fault`` planted: the state is made by
+    ``make_train_state`` (its moments and counts then filled from the
+    seed, as a state mid-run); the first loss, a host snapshot; a
+    synchronous save of step 1; an async save of step 2, a second loss
+    while it writes, then every ``.opt/m`` leaf updated in place (+1)
+    before ``wait``; every live leaf zeroed; steps 1 and 2 restored on
+    ``dev``, and a third loss on the restored parameters.  With ``hold``
+    the writer thread starts its write only after the in-place update, so
+    a host copy left to the thread reads it.  Returns the gates
+    (``ckpt_gates``) and the measurements."""
+    import repro_torch.checkpoint as ckpt
+    from repro_torch.checkpoint import checkpoint as impl
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_state
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = make_train_state(cfg, gen, device=dev)
+    live = ckpt_leaves(state)
+    for key, leaf in live.items():
+        if key.startswith(".opt/m/"):
+            leaf.normal_(generator=gen).mul_(1e-3)
+        elif key.startswith(".opt/v/"):
+            leaf.uniform_(generator=gen).mul_(1e-6)
+    state.opt["count"].fill_(CKPT_MID_STEP)
+    state.step.fill_(CKPT_MID_STEP)
+    model = build_model(cfg, use_kernel=True, device=dev)
+    tokens = torch.from_numpy(tokens).to(dev)
+    out = {"bytes": sum(t.numel() * t.element_size() for t in live.values()),
+           "leaves": len(live)}
+    l0, n0 = ckpt_loss(model, state.params, tokens, dev)
+    t0 = time.perf_counter()
+    snap = {k: v.detach().to("cpu").clone() for k, v in live.items()}
+    out["snapshot_s"] = time.perf_counter() - t0
+
+    writes, released = [], threading.Event()
+    write = impl.save_checkpoint
+
+    def timed_write(*args, **kwargs):
+        if hold:
+            released.wait(600)
+        writes.append(time.perf_counter())
+        try:
+            return write(*args, **kwargs)
+        finally:
+            writes.append(time.perf_counter())
+    with ckpt_fault(fault):
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(tmp, 1, state)
+        out["save_s"] = time.perf_counter() - t0
+        if fault == "flip_bit":
+            flip_bit(tmp / "step_1" / "arrays.npz", *CKPT_FLIP)
+        with swapped(impl, "save_checkpoint", timed_write):
+            ck = ckpt.AsyncCheckpointer(tmp)
+            t0 = time.perf_counter()
+            ck.save(2, state)
+            t1 = time.perf_counter()
+            l1, n1 = ckpt_loss(model, state.params, tokens, dev)
+            t2 = time.perf_counter()
+            for key, leaf in live.items():
+                if key.startswith(".opt/m/"):
+                    leaf.add_(1)
+            device_sync(dev)
+            released.set()
+            ck.wait()
+            t3 = time.perf_counter()
+        for leaf in live.values():
+            leaf.zero_()
+        device_sync(dev)
+        t4 = time.perf_counter()
+        r1 = ckpt.restore_checkpoint(tmp, 1, state, device=dev)
+        device_sync(dev)
+        t5 = time.perf_counter()
+        r2 = ckpt.restore_checkpoint(tmp, 2, state, device=dev)
+        device_sync(dev)
+        t6 = time.perf_counter()
+    l2, n2 = ckpt_loss(model, r1.params, tokens, dev)
+    w0, w1 = writes
+    out.update({
+        "async_return_s": t1 - t0, "async_write_s": w1 - w0,
+        "async_s": t3 - t0, "loss_s": t2 - t1,
+        "overlap_s": max(0.0, min(t2, w1) - max(t1, w0)),
+        "restore1_s": t5 - t4, "restore2_s": t6 - t5,
+        "losses": (float(l0), float(l1), float(l2)),
+        "launches": (n0, n1, n2)})
+    out["gates"] = ckpt_gates(dev, tmp, live, snap, r1, r2, (l0, l1, l2))
+    return out
+
+
+def ckpt_checks(dev, cfg, tokens, fault_cfg, fault_tokens, root):
+    """The checkpoint round trip (``ckpt_run``) of ``cfg`` on ``tokens``
+    under ``root``: gates C2-C4 must pass, each loss must launch flash
+    once a layer, and the rates are printed.  Then on ``fault_cfg`` and
+    ``fault_tokens``, with the writer held (``hold``): a clean run must
+    pass every gate, and each fault of ``CKPT_FAULTS`` must break the
+    gates listed for it and no other.  Returns the first run's flash
+    launches: (the two losses on the live state, the loss on the restored
+    parameters)."""
+    from pathlib import Path
+    root = Path(root)
+    usage = shutil.disk_usage(root)
+    print(f"ckpt disk under the temporary directory: {usage.free} bytes "
+          f"free of {usage.total}", flush=True)
+    run = ckpt_run(dev, cfg, tokens, root / "full")
+    gb = run["bytes"] / 1e9
+    print(f"ckpt {cfg.name}: state {run['bytes']} bytes ({gb:.3f} GB) in "
+          f"{run['leaves']} leaves; card {card_line()}", flush=True)
+    print(f"ckpt {cfg.name}: host snapshot {run['snapshot_s']:.3f} s; save "
+          f"step 1 {run['save_s']:.3f} s = {gb / run['save_s']:.3f} GB/s; "
+          f"async save step 2: save() returned in "
+          f"{run['async_return_s']:.3f} s, the thread wrote for "
+          f"{run['async_write_s']:.3f} s, save() to wait() "
+          f"{run['async_s']:.3f} s = {gb / run['async_s']:.3f} GB/s; the "
+          f"second loss took {run['loss_s']:.4f} s, {run['overlap_s']:.4f} s "
+          f"of it under the write "
+          f"({run['overlap_s'] / max(run['async_write_s'], 1e-9):.4f} of the "
+          f"write); restore step 1 {run['restore1_s']:.3f} s = "
+          f"{gb / run['restore1_s']:.3f} GB/s, step 2 "
+          f"{run['restore2_s']:.3f} s = {gb / run['restore2_s']:.3f} GB/s",
+          flush=True)
+    shutil.rmtree(root / "full")
+    flash = cfg.num_layers
+    print(f"ckpt {cfg.name}: gates {run['gates']}; losses "
+          f"{run['losses']}; flash launches {run['launches']} (each "
+          f"{flash})", flush=True)
+    failed = {g: why for g, why in run["gates"].items() if why}
+    check(not failed, f"ckpt {cfg.name}: gates failed: {failed}")
+    check(run["launches"] == (flash,) * 3,
+          f"ckpt {cfg.name}: flash launches {run['launches']}, not "
+          f"{flash} a loss")
+    for fault in (None,) + tuple(CKPT_FAULTS):
+        t0 = time.perf_counter()
+        got = ckpt_run(dev, fault_cfg, fault_tokens, root / f"{fault}",
+                       fault, hold=True)
+        shutil.rmtree(root / f"{fault}")
+        broken = sorted(g for g, why in got["gates"].items() if why)
+        want = sorted(CKPT_FAULTS.get(fault, ()))
+        print(f"ckpt {fault_cfg.name} planted fault {fault}: broke {broken} "
+              f"(must break {want}); {got['gates']}; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        check(broken == want, f"ckpt: planted fault {fault} broke {broken}, "
+                              f"not {want}")
+        check(got["launches"] == (fault_cfg.num_layers,) * 3,
+              f"ckpt {fault_cfg.name}: flash launches {got['launches']}")
+    return run["launches"]
+
+
+def ckpt_phase(dev):
+    """(m) the host side of training: C1 on the data pipeline, then
+    ``ckpt_checks`` on a full-width ``CKPT_ARCH`` train state (~5.93 GB)
+    on step 0's global batch, its faults on the reduced config under a
+    temporary directory removed at the end.  Returns the flash launches by
+    path."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    batches = ckpt_data_gate()
+    fault_tokens = SyntheticLM(DataConfig(**CKPT_FAULT_DATA)).global_batch_at(0)
+    root = tempfile.mkdtemp(prefix="ckpt_phase_")
+    try:
+        n0, n1, n2 = ckpt_checks(dev, get_config(CKPT_ARCH), batches[0],
+                                 reduced(get_config(CKPT_ARCH)),
+                                 fault_tokens, root)
+    finally:
+        shutil.rmtree(root)
+    return {("flash_attention_fwd", f"{CKPT_ARCH} ckpt loss"): n0 + n1,
+            ("flash_attention_fwd", f"{CKPT_ARCH} ckpt restored loss"): n2}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -4384,9 +4755,11 @@ def main() -> int:
     # then head_dim 80: the flash kernel there, stablelm-3b's serving and
     # the hybrid family (zamba2-2.7b: its loss runs both kernels); then the
     # encdec family (whisper-medium), on which no kernel runs; then the
-    # serving launcher (qwen2-0.5b at full width, every arch at --smoke)
+    # serving launcher (qwen2-0.5b at full width, every arch at --smoke);
+    # then the data pipeline and a full-width qwen2-0.5b checkpoint round
+    # trip (flash in each of its three losses)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
-                  hybrid_phase, encdec_phase, launch_phase):
+                  hybrid_phase, encdec_phase, launch_phase, ckpt_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

@@ -1,16 +1,16 @@
 """Elastic scaling: restart a run on a different device count.
 
-The pieces that make this a plan rather than a prayer (in the JAX
-reference package; the port's ``checkpoint/``, ``data/pipeline.py`` and
-``sharding/specs.py`` are still to be ported with training, ROADMAP §1,
-so here the plan is arithmetic on meshes and batches only):
+The pieces that make this a plan rather than a prayer:
   * checkpoints store *full logical arrays* (manifest carries shapes), so
-    restore re-shards onto whatever mesh exists (checkpoint.restore with
-    new shardings);
+    restore places them on whatever device exists (the port's
+    ``checkpoint.restore_checkpoint`` with ``device=``; the reference's
+    re-shards with new shardings);
   * the data pipeline is a pure function of (step, dp_rank, dp_size)
-    (data/pipeline.py), so the token stream continues exactly;
-  * sharding rules are derived from (cfg, mesh) (sharding/specs.py), not
+    (``data/pipeline.py``), so the token stream continues exactly;
+  * sharding rules are derived from (cfg, mesh) (the reference's
+    ``sharding/specs.py``, not ported: one card has no mesh), not
     hard-coded — a (8,16) degraded mesh yields a valid rule set.
+Here the plan itself is arithmetic on meshes and batches only.
 
 ``restart_plan_for_faults`` closes the loop with the fault layer: a
 fail-stop ``FaultSpec`` (the same object the DES ran, or the operator's

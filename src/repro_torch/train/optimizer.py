@@ -1,5 +1,12 @@
-"""AdamW over lists of tensors, the port of ``repro.train.optimizer``'s
-AdamW (Adafactor waits for the training slice, ROADMAP §1 slice 8c).
+"""The port of ``repro.train.optimizer``: AdamW's init and update, and
+Adafactor's init.  The inits take any tree of tensors (nested dicts,
+lists, tuples), as the reference's take pytrees, and return the
+reference's state layout: ``{"m": tree, "v": tree, "count": 0-d int32}``
+for AdamW and ``{"f": tree of {"vr", "vc"} or {"v"}, "count": 0-d
+int32}`` for Adafactor, the count on the device of the first parameter.
+``adamw_update`` steps lists of tensors (what gradient calibration
+passes); the tree-aware updates and Adafactor's update come with the
+training step.
 
 Every step runs in float32, as the reference's does: the moments are
 float32, the gradient is cast to float32 before it enters them, the bias
@@ -9,9 +16,11 @@ rounded to float32 at every step, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
+
+from repro_torch._tree import map_with_keys
 
 F32 = torch.float32
 
@@ -29,12 +38,51 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
     return [g * scale for g in grads], gn
 
 
-def adamw_init(params: Sequence[torch.Tensor]) -> Dict:
-    return {"m": [torch.zeros(p.shape, dtype=F32, device=p.device)
-                  for p in params],
-            "v": [torch.zeros(p.shape, dtype=F32, device=p.device)
-                  for p in params],
-            "count": 0}
+def _init(params, init_one: Callable[[torch.Tensor], Any]):
+    """``init_one`` on every parameter, and the step count: a 0-d int32
+    zero, as the reference's ``jnp.zeros((), jnp.int32)``, on the first
+    parameter's device."""
+    devices: List[torch.device] = []
+
+    def one(_, p):
+        devices.append(p.device)
+        return init_one(p)
+    tree = map_with_keys(one, params)
+    return tree, torch.zeros((), dtype=torch.int32,
+                             device=devices[0] if devices else "cpu")
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=F32, device=p.device)
+
+
+def adamw_init(params) -> Dict:
+    m, count = _init(params, _zeros_f32)
+    return {"m": m, "v": map_with_keys(lambda _, p: _zeros_f32(p), params),
+            "count": count}
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2
+
+
+def adafactor_init(params) -> Dict:
+    """Adafactor's factored second moment: a leaf of two or more axes
+    keeps a row vector (its shape without the last axis) and a column
+    vector (without the second to last); any other leaf a full ``v``."""
+    def init_one(p):
+        shape, dev = tuple(p.shape), p.device
+        if _factored(shape):
+            return {"vr": torch.zeros(shape[:-1], dtype=F32, device=dev),
+                    "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=F32,
+                                      device=dev)}
+        return {"v": torch.zeros(shape, dtype=F32, device=dev)}
+    f, count = _init(params, init_one)
+    return {"f": f, "count": count}
+
+
+def opt_init(name: str) -> Callable:
+    return {"adamw": adamw_init, "adafactor": adafactor_init}[name]
 
 
 def _bias_correction(b: float, count: int, device: torch.device
@@ -43,7 +91,7 @@ def _bias_correction(b: float, count: int, device: torch.device
     reference computes it) and moved to ``device``: the device's float32
     ``pow`` need not round as the host's does."""
     b32 = torch.tensor(b, dtype=F32)
-    c32 = torch.tensor(float(count), dtype=F32)
+    c32 = torch.tensor(count, dtype=F32)
     return (1.0 - torch.pow(b32, c32)).to(device)
 
 
@@ -56,6 +104,8 @@ def adamw_update(params: Sequence[torch.Tensor],
     Pure: neither ``params`` nor ``state`` is modified."""
     grads, gn = clip_by_global_norm(grads, max_grad_norm)
     count = state["count"] + 1
+    n = int(count)               # the one read of the count per update
+    corrections: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
     new_p, new_m, new_v = [], [], []
     # Python scalars meet float32 tensors in float32, as JAX's weakly
     # typed scalars do
@@ -63,8 +113,12 @@ def adamw_update(params: Sequence[torch.Tensor],
         g = g.to(F32)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
-        mhat = m / _bias_correction(b1, count, p.device)
-        vhat = v / _bias_correction(b2, count, p.device)
+        if p.device not in corrections:
+            corrections[p.device] = (_bias_correction(b1, n, p.device),
+                                     _bias_correction(b2, n, p.device))
+        c1, c2 = corrections[p.device]
+        mhat = m / c1
+        vhat = v / c2
         step = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(F32)
         new_p.append((p.to(F32) - lr * step).to(p.dtype))
         new_m.append(m)

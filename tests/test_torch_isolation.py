@@ -25,6 +25,8 @@ from repro_torch.serve import (HPLPredictionService, PredictionService,
 from repro_torch.campaign import CampaignSpec, run_campaign
 from repro_torch.faults import FaultSpec, sweep_faults
 from repro_torch.launch import serve as launch_serve
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.train import make_train_state
 from repro_torch.ft import simulate_fault_impact
 from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
                                    get_platform)
@@ -44,7 +46,10 @@ sys.modules["jax"] = None            # any import of jax now fails
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
-assert {"repro_torch.launch", "repro_torch.launch.serve"} <= set(names)
+assert {"repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.data", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+        "repro_torch.train.state"} <= set(names)
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -88,6 +93,22 @@ assert isinstance(restart_plan_for_faults(
     old_mesh=(4, 4)), ElasticPlan)
 assert simulate_fault_impact("hpl", "bdw-local", FaultSpec.straggler(rank=0),
                              device="cpu")["blowup"] > 1
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_checkpoint, save_checkpoint)
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.train import make_train_state
+tokens = SyntheticLM(DataConfig(512, 16, 4)).global_batch_at(0)
+assert tokens.shape == (4, 16)
+state = make_train_state(reduced(get_config("qwen2-0.5b")),
+                         torch.Generator().manual_seed(0), device="cpu")
+save_checkpoint(d, 1, state)
+ck = AsyncCheckpointer(d)
+ck.save(2, state)
+ck.wait()
+assert latest_step(d) == 2
+back = restore_checkpoint(d, 2, state, device="cpu")
+assert torch.equal(back.params["embed"]["tok"], state.params["embed"]["tok"])
 loaded = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
@@ -209,6 +230,10 @@ def _entry_points():
             "one", workloads=["hpl"], platforms=["bdw-local"])),
         "launch.serve.main": lambda: launch_serve.main(
             ["--arch", "qwen2-0.5b", "--smoke"]),
+        "make_train_state": lambda: make_train_state(
+            lm, torch.Generator().manual_seed(0)),
+        "restore_checkpoint": lambda: restore_checkpoint(
+            "no-such-dir", 0, {}),
     }
 
 
@@ -253,6 +278,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+def test_host_side_of_training_keeps_the_references_signatures():
+    """The entry points that touch no device keep the reference's
+    signatures (``restore_checkpoint`` takes ``device=`` in place of the
+    reference's ``shardings=``; ``make_train_state`` a torch generator in
+    place of the jax key, and ``device=``)."""
+    import inspect
+    import repro.checkpoint as ref_ckpt
+    import repro.data as ref_data
+    import repro_torch.checkpoint as port_ckpt
+    import repro_torch.data as port_data
+
+    def surface(ckpt, data):
+        return [(fn.__qualname__, str(inspect.signature(fn))) for fn in (
+            ckpt.save_checkpoint, ckpt.latest_step, ckpt.AsyncCheckpointer,
+            ckpt.AsyncCheckpointer.save, ckpt.AsyncCheckpointer.wait,
+            data.DataConfig, data.SyntheticLM,
+            data.SyntheticLM.global_batch_at, data.SyntheticLM.shard_at,
+            data.make_batch_iterator)]
+    assert surface(port_ckpt, port_data) == surface(ref_ckpt, ref_data)
 
 
 def test_unported_paths_name_their_slice():

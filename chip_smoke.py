@@ -219,6 +219,28 @@ after:
     Three faults planted on reduced qwen2-0.5b (a bit flipped in a saved
     file, m and v restored crosswise, the async host copy left to its
     thread) must each break the gates ``CKPT_FAULTS`` lists and no other.
+  * The training step: full-width qwen2-0.5b (494,147,456 parameters,
+    AdamW, remat "dots_nb") on one global batch of 4 x 256 tokens from
+    the data pipeline, from ``make_train_state`` (seed 0) after one
+    ``train_step``, with every kernel's launch count held at 0 (training
+    runs the plain paths).  T4 the float32 loss and gradients under remat
+    "none", "full" and "dots_nb" (1e-6, each one's peak memory); the host
+    CPU's float32 step on a copy of the state; T1 the card's loss, grad
+    norm (1e-5) and every gradient leaf (1e-4 of the host's scale)
+    against the host's; T2 the card's AdamW update on the host's
+    gradients against the host's update (1e-6, the count equal); T3
+    microbatches 2 against 1 (1e-5), each int8-compressed leaf within
+    half a step, and two steps at lr 1e-3 with the loss falling; T5 the
+    step in bfloat16 as configured (finite, its loss within 5e-2 of
+    float32, every gradient leaf's norm gap to float32 between 1e-3 and
+    0.25); T6 ``make_train_step(use_kernel=True)`` raising, and both
+    kernel wrappers refusing inputs that require grad.  Five faults
+    planted in the code under test (the middle layer's attention output
+    detached, in every dtype or in bf16 only; AdamW's bias corrections at
+    the old count; microbatch gradients summed and not divided; the bf16
+    step built in float32) must each break the gate ``TRAIN_FAULTS``
+    lists and no other.  The bf16 gradient pass is then timed at 4 x 2048
+    tokens under each remat policy, with its peak device memory.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -1052,6 +1074,49 @@ CKPT_MID_STEP = 7
 CKPT_FAULTS = {"flip_bit": ("C2", "C3"), "swap_moments": ("C2",),
                "lazy_snapshot": ("C4",)}
 CKPT_FLIP = (".params/final_norm/scale", 0, 29)
+# The training step: full-width qwen2-0.5b (AdamW, remat "dots_nb") on one
+# global batch of 4 x 256 tokens from the data pipeline, seed 0, from a
+# state one step in (count 1, so that AdamW's bias corrections and moments
+# matter); the host CPU runs the same step on the same state and batch
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_DATA = {"vocab_size": 151936, "seq_len": 256, "global_batch": 4,
+              "seed": 0}
+TRAIN_LR = 3e-4          # make_train_step's default
+TRAIN_LR_FALL = 1e-3     # T3's two steps on one batch
+# T1 card vs host in float32 (loss, pre-clip grad norm: relative; every
+# gradient leaf: max |diff| over the host's max |g|); T2 the card's AdamW
+# update on the host's gradients vs the host's (params, m, v: relative to
+# each leaf's scale); T3 microbatches 2 vs 1 (loss and gradients); T4
+# remat policies vs "none"; T5 the step as configured (bf16 compute) vs
+# the same run's float32 one: its loss (relative), and every gradient
+# leaf's ||g_bf16 - g_f32|| / ||g_f32|| (a stacked leaf layer by layer),
+# whose largest must lie between a floor (a step that ran in float32
+# reads ~0) and a ceiling (a leaf that lost its gradient reads 1).  bf16
+# rounds every element, so a leaf's largest elementwise gap reads its
+# worst element; the norm reads the leaf.
+TRAIN_LIMITS = {"T1 loss": 1e-5, "T1 grad_norm": 1e-5, "T1 grad": 1e-4,
+                "T2": 1e-6, "T3 microbatch": 1e-5, "T4": 1e-6,
+                "T5 loss": 5e-2, "T5 grad": 0.25, "T5 grad floor": 1e-3}
+# int8 compression: a dequantized element within scale / 2 of the
+# gradient, scale = max|g| / 127, up to the float32 roundings of g / scale
+# and q * scale (each at most 127 ulps of scale at the largest q)
+TRAIN_INT8_SLACK = 1 + 254 * 2.0 ** -23
+TRAIN_REMAT = ("none", "full", "dots_nb")
+# the gradient pass timed at a training sequence length, as configured
+# (bf16), under each policy ("none" last: its saved attention scores may
+# not fit the card beside the state)
+TRAIN_LONG_DATA = dict(TRAIN_DATA, seq_len=2048)
+TRAIN_LONG_REMAT = ("full", "dots_nb", "dots", "none")
+# the faults planted in the code under test, each with the gates it must
+# break (every other gate of that run must pass): the middle layer's
+# attention output detached (its attention leaves lose their gradient);
+# AdamW's bias corrections taken at the count before the step;
+# microbatch gradients summed and not divided; the middle layer's
+# attention output detached in bf16 only; the configured bf16 step built
+# in float32
+TRAIN_FAULTS = {"attention_cut": ("T1",), "stale_bias_correction": ("T2",),
+                "microbatch_sum": ("T3",), "bf16_attention_cut": ("T5",),
+                "bf16_as_float32": ("T5",)}
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -4562,6 +4627,469 @@ def ckpt_phase(dev):
             ("flash_attention_fwd", f"{CKPT_ARCH} ckpt restored loss"): n2}
 
 
+def keyed(tree):
+    """{key: leaf} of a tree in the port's flatten order."""
+    from repro_torch._tree import map_with_keys
+    out = {}
+    map_with_keys(out.__setitem__, tree)
+    return out
+
+
+def leaf_gaps(got, want):
+    """{key: max |got - want| / max |want|} over two trees of one layout
+    (either may be flat, {key: leaf}; ``want``'s leaves tensors or numpy
+    arrays), on ``want``'s device (a leaf of zeros: max |got|).  The keys
+    and each leaf's shape must agree."""
+    got, want = keyed(got), keyed(want)
+    check(sorted(got) == sorted(want),
+          f"leaf_gaps: {sorted(set(got) ^ set(want))} in one tree only")
+    out = {}
+    for key, w in want.items():
+        w = torch.as_tensor(w)
+        g = got[key].detach().to(w.device)
+        check(g.shape == w.shape, f"leaf_gaps: {key} {tuple(g.shape)} vs "
+                                  f"{tuple(w.shape)}")
+        diff = float((g.float() - w.float()).abs().max()) if w.numel() else 0.0
+        scale = float(w.float().abs().max()) if w.numel() else 0.0
+        out[key] = diff / scale if scale > 0 else diff
+    return out
+
+
+def leaf_norm_gaps(got, want):
+    """{key: ||got - want|| / ||want||} over two trees of one layout, in
+    float32 on ``want``'s device (a leaf of zeros: ||got||); a leaf
+    stacked on the layer axis (under ``layers``) layer by layer, as
+    ``key[i]``, so that one layer's fault is not diluted by the others."""
+    got = keyed(got)
+    out = {}
+    for key, w in keyed(want).items():
+        w = w.float()
+        d = got[key].to(w.device).float() - w
+        if key.startswith("layers/"):
+            diffs = torch.linalg.vector_norm(d.flatten(1), dim=1).tolist()
+            scales = torch.linalg.vector_norm(w.flatten(1), dim=1).tolist()
+            keys = [f"{key}[{i}]" for i in range(len(scales))]
+        else:
+            diffs, scales = [float(torch.linalg.vector_norm(d))], [
+                float(torch.linalg.vector_norm(w))]
+            keys = [key]
+        for k, diff, scale in zip(keys, diffs, scales):
+            out[k] = diff / scale if scale > 0 else diff
+    return out
+
+
+def worst(gaps):
+    """The largest gap and its key."""
+    key = max(gaps, key=gaps.get)
+    return gaps[key], key
+
+
+@contextlib.contextmanager
+def train_fault(fault, cfg):
+    """A fault in the code under test (``TRAIN_FAULTS``): the attention
+    output of layer ``num_layers // 2`` detached (found by its ``wq``
+    slice's place in the stacked leaf, so a remat recompute cuts it too),
+    in every dtype or in bf16 only; AdamW's bias corrections at the count
+    before the step; the microbatch gradients left summed; or
+    ``make_train_step`` building its model in float32 whatever the
+    config's dtype."""
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer, step
+    if fault in ("attention_cut", "bf16_attention_cut"):
+        real = layers.apply_attention
+        cut = cfg.num_layers // 2
+        bf16_only = fault == "bf16_attention_cut"
+
+        def detached(p, x, *args, **kwargs):
+            out, kv = real(p, x, *args, **kwargs)
+            wq = p["wq"]
+            if wq.storage_offset() == cut * wq.numel() and (
+                    not bf16_only or out.dtype == torch.bfloat16):
+                out = out.detach()
+            return out, kv
+        with swapped(layers, "apply_attention", detached):
+            yield
+    elif fault == "bf16_as_float32":
+        real = step.build_model
+        with swapped(step, "build_model", lambda c, **kw: real(
+                dataclasses.replace(c, dtype="float32"), **kw)):
+            yield
+    elif fault == "stale_bias_correction":
+        real = optimizer._bias_correction
+        with swapped(optimizer, "_bias_correction",
+                     lambda b, count, device: real(b, count - 1, device)):
+            yield
+    elif fault == "microbatch_sum":
+        with swapped(step, "_microbatch_mean", lambda total, n: list(total)):
+            yield
+    else:
+        yield
+
+
+def train_host_run(cfg, state, batch, host):
+    """The host's float32 step on ``state`` (on ``host``): the gradients
+    (``loss_and_grads``) and the AdamW update, as ``train_step`` takes
+    them.  Returns them with the loss, the pre-clip norm and the wall."""
+    from repro_torch.train import adamw_update
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=host)
+    loss, _, grads = loss_and_grads(model, state.params, batch)
+    params, opt, gn = adamw_update(state.params, grads, state.opt,
+                                   lr=TRAIN_LR)
+    return {"loss": float(loss), "grad_norm": float(gn), "grads": grads,
+            "new": {"params": params, "m": opt["m"], "v": opt["v"]},
+            "count": int(opt["count"]), "wall_s": time.perf_counter() - t0}
+
+
+def train_bf16(dev, cfg, state, batch, grads, loss, r):
+    """T5 into ``r``: two steps of ``make_train_step(cfg)`` as configured
+    (bf16 compute) on ``state`` (each timed, each finite), and its loss
+    and gradients against this run's float32 ``loss`` and ``grads``."""
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+    step16, model16 = make_train_step(cfg, lr=TRAIN_LR, device=dev)
+    r["bf16 walls"], r["T5 finite"] = [], True
+    for _ in range(2):
+        device_sync(dev)
+        t0 = time.perf_counter()
+        new, metrics = step16(state, batch)
+        device_sync(dev)
+        r["bf16 walls"].append(time.perf_counter() - t0)
+        r["T5 finite"] &= all(
+            bool(torch.isfinite(t).all()) for t in keyed(new).values()) \
+            and all(math.isfinite(float(v)) for v in metrics.values())
+        del new
+    r["bf16 loss"] = float(metrics["loss"])
+    r["T5 loss"] = rel_err(r["bf16 loss"], loss)
+    _, _, g16 = loss_and_grads(model16, state.params, batch)
+    gaps = leaf_norm_gaps(g16, grads)
+    r["T5 grad"], r["T5 worst"] = worst(gaps)
+    r["T5 grad median"] = statistics.median(gaps.values())
+
+
+def train_card_run(dev, cfg, state, batch, host, fault=None):
+    """T1-T3 and T5 on ``dev`` with ``fault`` planted, against ``host``'s
+    float32 run (its gradients and update already on ``dev``); ``cfg`` as
+    configured, T1-T3 in float32.  Returns (gates: {gate: None if it
+    passes, else why}, readings)."""
+    from repro_torch.train import adamw_update, make_train_step
+    from repro_torch.train.step import compress_grads, loss_and_grads
+    lim, r = TRAIN_LIMITS, {}
+    cfg16, cfg = cfg, dataclasses.replace(cfg, dtype="float32")
+    with train_fault(fault, cfg):
+        step, model = make_train_step(cfg, lr=TRAIN_LR, device=dev)
+        device_sync(dev)
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        device_sync(dev)
+        r["step_s"] = time.perf_counter() - t0
+        r["loss"] = float(metrics["loss"])
+        del new
+        # T1: the gradients against the host's
+        _, _, grads = loss_and_grads(model, state.params, batch)
+        r["T1 loss"] = rel_err(r["loss"], host["loss"])
+        r["T1 grad_norm"] = rel_err(float(metrics["grad_norm"]),
+                                    host["grad_norm"])
+        gaps = leaf_gaps(grads, host["grads"])
+        r["T1 grad"], r["T1 worst"] = worst(gaps)
+        cut = cfg.num_layers // 2
+        r["T1 layer attn"] = max(
+            float((grads["layers"]["attn"][k][cut]
+                   - w[cut]).abs().max() / w.abs().max())
+            for k, w in host["grads"]["layers"]["attn"].items())
+        train_bf16(dev, cfg16, state, batch, grads, r["loss"], r)
+        # T2: the card's update on the host's gradients
+        params, opt, _ = adamw_update(state.params, host["grads"], state.opt,
+                                      lr=TRAIN_LR)
+        r["T2"], r["T2 worst"] = worst(leaf_gaps(
+            {"params": params, "m": opt["m"], "v": opt["v"]}, host["new"]))
+        r["T2 count"] = (int(opt["count"]), host["count"])
+        del params, opt
+        # T3: microbatches, int8 compression, two steps at a larger lr
+        loss2, _, grads2 = loss_and_grads(model, state.params, batch,
+                                          microbatches=2)
+        r["T3 microbatch"] = max(rel_err(float(loss2), r["loss"]),
+                                 worst(leaf_gaps(grads2, grads))[0])
+        del grads2
+        comp = keyed(compress_grads(grads))
+        r["T3 int8"] = max(
+            float((comp[k] - g).abs().max() / (g.abs().max() / 254.0))
+            for k, g in keyed(grads).items() if float(g.abs().max()) > 0)
+        del comp, grads
+        fall, _ = make_train_step(cfg, lr=TRAIN_LR_FALL, device=dev)
+        s1, m1 = fall(state, batch)
+        _, m2 = fall(s1, batch)
+        r["T3 losses"] = (float(m1["loss"]), float(m2["loss"]))
+        del s1
+    t1 = [f"{k} {r[k]:.3e} > {lim[k]}" for k in
+          ("T1 loss", "T1 grad_norm", "T1 grad") if not r[k] <= lim[k]]
+    t2 = [f"T2 {r['T2']:.3e} > {lim['T2']} at {r['T2 worst']}"] \
+        if not r["T2"] <= lim["T2"] else []
+    if r["T2 count"][0] != r["T2 count"][1]:
+        t2.append(f"count {r['T2 count']}")
+    t3 = [f"microbatches 2 vs 1 {r['T3 microbatch']:.3e} > "
+          f"{lim['T3 microbatch']}"] \
+        if not r["T3 microbatch"] <= lim["T3 microbatch"] else []
+    if not r["T3 int8"] <= TRAIN_INT8_SLACK:
+        t3.append(f"int8 {r['T3 int8']:.6f} x scale/2")
+    if not r["T3 losses"][1] < r["T3 losses"][0]:
+        t3.append(f"losses {r['T3 losses']} do not fall")
+    t5 = [] if r["T5 finite"] else ["a bf16 step is not finite"]
+    if not r["T5 loss"] <= lim["T5 loss"]:
+        t5.append(f"loss {r['T5 loss']:.3e} > {lim['T5 loss']}")
+    if not lim["T5 grad floor"] <= r["T5 grad"] <= lim["T5 grad"]:
+        t5.append(f"worst gradient leaf {r['T5 grad']:.3e} at "
+                  f"{r['T5 worst']} outside [{lim['T5 grad floor']}, "
+                  f"{lim['T5 grad']}]")
+    gates = {g: ("; ".join(why) if why else None)
+             for g, why in (("T1", t1), ("T2", t2), ("T3", t3), ("T5", t5))}
+    return gates, r
+
+
+def train_remat(dev, cfg, state, batch):
+    """T4: the float32 loss and gradients under each of ``TRAIN_REMAT``
+    against "none" (within ``TRAIN_LIMITS["T4"]``), with each policy's
+    wall and peak device memory (GiB, on a card; None on the CPU)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.step import loss_and_grads
+    base, out = None, {}
+    for policy in TRAIN_REMAT:
+        model = build_model(dataclasses.replace(cfg, remat=policy),
+                            device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model, state.params, batch)
+        device_sync(dev)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else None)
+        if base is None:
+            base, gap = (loss, grads), 0.0
+        else:
+            gap = max(rel_err(float(loss), float(base[0])),
+                      worst(leaf_gaps(grads, base[1]))[0])
+        out[policy] = {"gap": gap, "peak_gib": peak, "wall_s": wall}
+        del grads
+    return out
+
+
+def train_long(dev, cfg, state, tokens):
+    """The gradient pass as configured (``cfg``: bf16 compute) on the
+    global batch ``tokens`` of a training sequence length, under each of
+    ``TRAIN_LONG_REMAT`` on the card: {policy: its second pass's wall,
+    the first's, and the peak device memory in GiB (the resident train
+    state included), or None where it ran out of memory}.  Timed, not
+    gated: the loss must be finite."""
+    from repro_torch.models import build_model
+    from repro_torch.train.step import loss_and_grads
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    out = {}
+    for policy in TRAIN_LONG_REMAT:
+        model = build_model(dataclasses.replace(cfg, remat=policy),
+                            device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        try:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                loss, _, grads = loss_and_grads(model, state.params, batch)
+                torch.cuda.synchronize(dev)
+                walls.append(time.perf_counter() - t0)
+                del grads
+        except torch.cuda.OutOfMemoryError:
+            out[policy] = None
+        else:
+            check(math.isfinite(float(loss)),
+                  f"train long {policy}: loss {float(loss)}")
+            out[policy] = {"wall_s": walls[1], "first_s": walls[0],
+                           "peak_gib": torch.cuda.max_memory_allocated(dev)
+                           / 2**30}
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_checks(dev, cfg, tokens, host=torch.device("cpu"),
+                 long_tokens=None):
+    """The training step's gates on ``cfg`` (float32 unless said) and the
+    global batch ``tokens``: the input state is ``make_train_state`` on
+    ``dev`` (seed 0) after one ``train_step``; T4 remat; the host's step
+    on a copy of it; T1-T3 (``train_card_run``) clean, then with each of
+    ``TRAIN_FAULTS`` planted, each of which must break exactly its gates;
+    T5 the bf16 step (``cfg`` as configured) in the same runs; T6 the
+    kernels refused.  With ``long_tokens`` (a card only), ``train_long``
+    times the gradient pass on them.  Returns the measurements."""
+    from repro_torch._tree import map_with_keys
+    from repro_torch.train import make_train_state, make_train_step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step, _ = make_train_step(cfg32, device=dev)
+    state, _ = step(make_train_state(cfg32, gen, device=dev), batch)
+    out = {"remat": train_remat(dev, cfg32, state, batch)}
+    for policy, got in out["remat"].items():
+        peak = got["peak_gib"]
+        print(f"train T4 {cfg.name} remat {policy}: loss and gradients "
+              f"{got['gap']:.3e} off remat none (limit "
+              f"{TRAIN_LIMITS['T4']}); loss and gradients in "
+              f"{got['wall_s']:.4f} s, peak device memory "
+              + (f"{peak:.2f} GiB" if peak is not None else "not measured"),
+              flush=True)
+        check(got["gap"] <= TRAIN_LIMITS["T4"],
+              f"train T4: remat {policy} {got['gap']:.3e} off remat none")
+    if dev.type == "cuda":
+        out["remat_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if long_tokens is not None:
+        out["long"] = train_long(dev, cfg, state, long_tokens)
+        for policy, got in out["long"].items():
+            print(f"train {cfg.name} {cfg.dtype} gradient pass at "
+                  f"{tuple(long_tokens.shape)} tokens, remat {policy}: "
+                  + ("out of memory" if got is None else
+                     f"{got['wall_s']:.4f} s (first {got['first_s']:.4f} "
+                     f"s), peak device memory {got['peak_gib']:.2f} GiB "
+                     "with the train state"), flush=True)
+        out["remat_peak_gib"] = max(
+            [out["remat_peak_gib"]] + [got["peak_gib"] for got in
+                                       out["long"].values() if got])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    t0 = time.perf_counter()
+    host_state = map_with_keys(lambda _, t: t.to(host), state)
+    host_batch = {"tokens": torch.from_numpy(tokens).to(host)}
+    out["to_host_s"] = time.perf_counter() - t0
+    hrun = train_host_run(cfg32, host_state, host_batch, host)
+    del host_state
+    out["host_step_s"] = hrun["wall_s"]
+    t0 = time.perf_counter()
+    hrun["grads"] = _to(hrun["grads"], dev)
+    hrun["new"] = _to(hrun["new"], dev)
+    device_sync(dev)
+    out["to_card_s"] = time.perf_counter() - t0
+    print(f"train {cfg.name} host step (float32, {tuple(tokens.shape)} "
+          f"tokens): {hrun['wall_s']:.3f} s; state to the host "
+          f"{out['to_host_s']:.3f} s, its results back "
+          f"{out['to_card_s']:.3f} s; loss {hrun['loss']!r} grad_norm "
+          f"{hrun['grad_norm']!r}", flush=True)
+
+    for fault in (None,) + tuple(TRAIN_FAULTS):
+        t0 = time.perf_counter()
+        gates, r = train_card_run(dev, cfg, state, batch, hrun, fault)
+        broken = sorted(g for g, why in gates.items() if why)
+        want = sorted(TRAIN_FAULTS.get(fault, ()))
+        if fault is None:
+            out["f32_step_s"], out["f32_loss"] = r["step_s"], r["loss"]
+            print(f"train T1 {cfg.name} float32 card vs host: loss "
+                  f"{r['T1 loss']:.3e}, grad_norm {r['T1 grad_norm']:.3e}, "
+                  f"gradient leaves {r['T1 grad']:.3e} of scale at "
+                  f"{r['T1 worst']} (limits {TRAIN_LIMITS['T1 loss']}, "
+                  f"{TRAIN_LIMITS['T1 grad_norm']}, "
+                  f"{TRAIN_LIMITS['T1 grad']}); card step "
+                  f"{r['step_s']:.4f} s, loss {r['loss']!r}", flush=True)
+            print(f"train T2 {cfg.name} AdamW on the host's gradients: "
+                  f"params, m, v {r['T2']:.3e} of scale at {r['T2 worst']} "
+                  f"(limit {TRAIN_LIMITS['T2']}); count {r['T2 count']}",
+                  flush=True)
+            print(f"train T3 {cfg.name}: microbatches 2 vs 1 "
+                  f"{r['T3 microbatch']:.3e} (limit "
+                  f"{TRAIN_LIMITS['T3 microbatch']}); int8 worst leaf "
+                  f"{r['T3 int8']:.6f} x scale/2 (limit "
+                  f"{TRAIN_INT8_SLACK:.6f}); two steps at lr "
+                  f"{TRAIN_LR_FALL}: losses {r['T3 losses']}", flush=True)
+            out["bf16_step_s"], out["bf16_loss"] = (r["bf16 walls"][-1],
+                                                    r["bf16 loss"])
+            print(f"train T5 {cfg.name} {cfg.dtype} step: finite "
+                  f"{r['T5 finite']}, loss {r['bf16 loss']!r} vs float32 "
+                  f"{r['loss']!r}: {r['T5 loss']:.3e} (limit "
+                  f"{TRAIN_LIMITS['T5 loss']}); gradient leaves' norm gap "
+                  f"to float32: worst {r['T5 grad']:.3e} at {r['T5 worst']},"
+                  f" median {r['T5 grad median']:.3e} (limits "
+                  f"[{TRAIN_LIMITS['T5 grad floor']}, "
+                  f"{TRAIN_LIMITS['T5 grad']}]); step "
+                  f"{r['bf16 walls'][-1]:.4f} s (first "
+                  f"{r['bf16 walls'][0]:.4f} s)", flush=True)
+        print(f"train {cfg.name} planted fault {fault}: broke {broken} (must "
+              f"break {want}); {gates}; T1 grad {r['T1 grad']:.3e}, layer "
+              f"{cfg.num_layers // 2} attention {r['T1 layer attn']:.3e}, T2 "
+              f"{r['T2']:.3e}, T3 microbatch {r['T3 microbatch']:.3e}, T5 "
+              f"grad {r['T5 grad']:.3e} at {r['T5 worst']}; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        check(broken == want, f"train: planted fault {fault} broke {broken}, "
+                              f"not {want}")
+
+    # T6: no kernel on the path (the caller holds the counts at 0); the
+    # step and the kernels refuse what has no backward
+    refused = []
+    try:
+        make_train_step(cfg, use_kernel=True, device=dev)
+    except RuntimeError as e:
+        refused.append(f"make_train_step(use_kernel=True): {e}")
+    check(len(refused) == 1, "train T6: make_train_step(use_kernel=True) "
+                             "did not raise")
+    if dev.type == "cuda":
+        from repro_torch.kernels.flash_attention import flash_attention_fwd
+        from repro_torch.kernels.ssd_scan import ssd_scan
+        q = torch.randn(1, 64, 1, 2, 64, device=dev, requires_grad=True)
+        k = torch.randn(1, 64, 1, 64, device=dev)
+        x = torch.randn(1, 64, 2, 8, device=dev, requires_grad=True)
+        dt = torch.rand(1, 64, 2, device=dev)
+        a = -torch.ones(2, device=dev)
+        bc = torch.randn(1, 64, 2, 16, device=dev)
+        for name, call in (
+                ("flash_attention_fwd",
+                 lambda: flash_attention_fwd(q, k, k.clone())),
+                ("ssd_scan", lambda: ssd_scan(x, dt, a, bc, bc.clone(), 64))):
+            try:
+                call()
+            except RuntimeError as e:
+                refused.append(f"{name}: {e}")
+            else:
+                check(False, f"train T6: {name} took inputs that require "
+                             "grad")
+    print("train T6 refusals: " + " | ".join(refused), flush=True)
+    return out
+
+
+def train_phase(dev):
+    """(n) the training step: ``train_checks`` on full-width ``TRAIN_ARCH``
+    (494,147,456 parameters, AdamW) and step 0's global batch of
+    ``TRAIN_DATA``, with every kernel's launch count held at 0 over the
+    phase (training runs the plain paths).  Returns the launches by path
+    (0 each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tokens = SyntheticLM(DataConfig(**TRAIN_DATA)).global_batch_at(0)
+    long_tokens = SyntheticLM(
+        DataConfig(**TRAIN_LONG_DATA)).global_batch_at(0)
+    out = train_checks(dev, cfg, tokens, long_tokens=long_tokens)
+    torch.cuda.synchronize(dev)
+    launches = {k.__name__: k.launches for k in counted}
+    peak = max(out["remat_peak_gib"],
+               torch.cuda.max_memory_allocated(dev) / 2**30)
+    print(f"train {cfg.name}: card step {out['f32_step_s']:.4f} s float32, "
+          f"{out['bf16_step_s']:.4f} s {cfg.dtype}; host CPU step "
+          f"{out['host_step_s']:.3f} s ({host_cpu()}); peak device memory "
+          f"{peak:.2f} GiB; phase wall {time.perf_counter() - t0:.3f} s; "
+          f"kernel launches {launches}; card {card_line()}", flush=True)
+    check(not any(launches.values()),
+          f"train T6: a kernel was launched on the training path {launches}")
+    return {(k, f"{TRAIN_ARCH} train"): 0
+            for k in ("flash_attention_fwd", "ssd_scan")}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -4757,9 +5285,11 @@ def main() -> int:
     # encdec family (whisper-medium), on which no kernel runs; then the
     # serving launcher (qwen2-0.5b at full width, every arch at --smoke);
     # then the data pipeline and a full-width qwen2-0.5b checkpoint round
-    # trip (flash in each of its three losses)
+    # trip (flash in each of its three losses); then a full-width
+    # qwen2-0.5b training step against the host CPU's (no kernel)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
-                  hybrid_phase, encdec_phase, launch_phase, ckpt_phase):
+                  hybrid_phase, encdec_phase, launch_phase, ckpt_phase,
+                  train_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 """The one walker over the port's trees (nested dicts, lists, tuples and
 ``NamedTuple``s of tensors), in the order ``jax.tree_util`` flattens the
-reference's pytrees.  The optimizer inits and the checkpoint format both
-use it, so a state's leaves come out in the same order for both."""
+reference's pytrees.  The optimizers and the checkpoint format both use
+it, so a state's leaves come out in the same order for both."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -26,3 +26,18 @@ def map_with_keys(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
         return type(tree)(map_with_keys(fn, v, key(i))
                           for i, v in enumerate(tree))
     return fn(prefix, tree)
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in the reference's flatten order."""
+    out: list = []
+    map_with_keys(lambda _, x: out.append(x), tree)
+    return out
+
+
+def unflatten(tree, values) -> Any:
+    """``tree``'s containers around ``values``, taken in flatten order
+    (jax's ``treedef.unflatten``)."""
+    it = iter(values)
+    return map_with_keys(lambda _, x: next(it), tree)
+

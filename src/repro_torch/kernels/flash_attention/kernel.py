@@ -72,11 +72,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, G, R, hd); k, v: (B, Sk, G, hd), CUDA tensors of one
     dtype (float32 or bfloat16), hd in {32, 64, 80, 128} -> (B, Sq, G, R, hd)
     in q's dtype.  ``flash_attention_fwd.launches`` counts the kernel's
-    launches."""
+    launches.  Refuses inputs that require grad while grad is enabled:
+    the kernel has no backward."""
     check_inputs(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: needs CUDA tensors, got "
                          f"{q.device}; ops.flash_attention takes CPU ones")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the output is written through raw pointers: it would come back
+        # with no grad_fn and cut attention out of the gradient silently
+        raise RuntimeError("flash_attention_fwd: the kernel has no backward "
+                           "(as the TPU kernel has none); call it without "
+                           "inputs that require grad, or under "
+                           "torch.no_grad()")
     b, sq, g, r, hd = q.shape
     sk = k.shape[1]
     if hd not in HEAD_DIMS:

@@ -15,8 +15,39 @@ main path calls it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def _chunk_body(state: torch.Tensor, xq: torch.Tensor, dtq: torch.Tensor,
+                Aq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+                causal: torch.Tensor):
+    """One chunk of ``ssd_chunked``: (the state after it, its output)."""
+    dtype = xq.dtype
+    cum = torch.cumsum(Aq, dim=1)                          # (B,Q,H)
+    # intra-chunk (dual, attention-like form); the (Q,Q,H) tiles in the
+    # compute dtype, as in the reference
+    L = cum[:, :, None, :] - cum[:, None, :, :]            # (B,Q,Q,H)
+    L = torch.where(causal, torch.exp(L), 0.0).to(dtype)
+    CB = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
+    M = CB * L * dtq[:, None, :, :].to(dtype)
+    y_intra = torch.einsum("bijh,bjhp->bihp", M, xq)
+    # inter-chunk: the carried state's contribution
+    y_inter = torch.einsum(
+        "bqhn,bhpn->bqhp",
+        (Cq.float() * torch.exp(cum)[..., None]).to(dtype),
+        state.to(dtype))
+    # the chunk's new state
+    last = cum[:, -1:, :]                                  # (B,1,H)
+    decay = torch.exp(last - cum)                          # (B,Q,H)
+    Sc = torch.einsum("bqhn,bqhp->bhpn",
+                      (Bq.float() * (decay * dtq)[..., None]).to(dtype), xq)
+    state = (torch.exp(last[:, 0, :])[:, :, None, None] * state
+             + Sc.float())
+    return state, y_intra + y_inter
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -37,7 +68,6 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         xh, Bh, Ch = F.pad(xh, pad), F.pad(Bh, pad), F.pad(Ch, pad)
         dt = F.pad(dt, (0, 0, 0, s - s0))
     nc = s // chunk
-    dtype = xh.dtype
 
     def reshape_c(t):
         return t.reshape(b, nc, chunk, *t.shape[2:])
@@ -48,32 +78,18 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     iq = torch.arange(chunk, device=xh.device)
     causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
     state = torch.zeros(b, h, p, n, dtype=torch.float32, device=xh.device)
+    body = _chunk_body
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, dt, A, Bh, Ch)):
+        # the reference remats the chunk body: the backward pass
+        # recomputes each chunk's (Q, Q, H) tiles instead of keeping them
+        body = functools.partial(checkpoint, _chunk_body,
+                                 use_reentrant=False)
     ys = []
     for c in range(nc):
-        xq, dtq, Aq, Bq, Cq = xc[:, c], dtc[:, c], Adt[:, c], Bc[:, c], \
-            Cc[:, c]
-        cum = torch.cumsum(Aq, dim=1)                      # (B,Q,H)
-        # intra-chunk (dual, attention-like form); the (Q,Q,H) tiles in the
-        # compute dtype, as in the reference
-        L = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
-        L = torch.where(causal, torch.exp(L), 0.0).to(dtype)
-        CB = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
-        M = CB * L * dtq[:, None, :, :].to(dtype)
-        y_intra = torch.einsum("bijh,bjhp->bihp", M, xq)
-        # inter-chunk: the carried state's contribution
-        y_inter = torch.einsum(
-            "bqhn,bhpn->bqhp",
-            (Cq.float() * torch.exp(cum)[..., None]).to(dtype),
-            state.to(dtype))
-        # the chunk's new state
-        last = cum[:, -1:, :]                              # (B,1,H)
-        decay = torch.exp(last - cum)                      # (B,Q,H)
-        Sc = torch.einsum("bqhn,bqhp->bhpn",
-                          (Bq.float() * (decay * dtq)[..., None]).to(dtype),
-                          xq)
-        state = (torch.exp(last[:, 0, :])[:, :, None, None] * state
-                 + Sc.float())
-        ys.append(y_intra + y_inter)
+        state, y = body(state, xc[:, c], dtc[:, c], Adt[:, c], Bc[:, c],
+                        Cc[:, c], causal)
+        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p)
     return y[:, :s0], state
 

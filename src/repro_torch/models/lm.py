@@ -22,19 +22,25 @@ Layer parameters are stacked on a leading layer axis, as in the
 reference, so converting a reference tree is a copy; the layer stack is a
 Python loop over that axis (the reference's ``lax.scan``).  The
 reference's ``constrain`` (a sharding constraint) is the identity on one
-device and is left out; remat is a training concern and is not ported.
+device and is left out.  Remat follows ``cfg.remat`` as in the reference
+(``remat``): each layer (the hybrid family: each group of ssm layers with
+its shared block; the encdec encoder's layers too) runs checkpointed when
+``forward`` or ``loss`` records a graph, and plain otherwise.
 ``cache["len"]`` is a Python int, and ``decode`` writes the KV cache, or
 the ssm cache's conv window and state, in place (the reference donates
 the cache to a jitted step).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._tree import leaves
 
 from . import layers as L
 from . import mamba2 as M
@@ -46,6 +52,33 @@ _PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 # rows of the table the reference's ``decode`` takes the encdec family's
 # position row from
 DECODE_POSITIONS = 8192
+
+
+_ATEN = torch.ops.aten
+# the products a selective remat policy saves: "dots" every matrix
+# product (the reference's ``checkpoint_dots``), "dots_nb" those without
+# batch dims (``checkpoint_dots_with_no_batch_dims``: the projections, not
+# the attention scores or the per-expert products)
+SAVED_PRODUCTS = {
+    "dots": (_ATEN.mm.default, _ATEN.addmm.default, _ATEN.bmm.default,
+             _ATEN.baddbmm.default),
+    "dots_nb": (_ATEN.mm.default, _ATEN.addmm.default)}
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under a remat policy, the reference's ``_maybe_remat``:
+    "none" leaves it as it is; "dots" and "dots_nb" checkpoint it saving
+    only the products ``SAVED_PRODUCTS`` lists (the rest is recomputed in
+    the backward pass); any other value ("full") checkpoints it whole.
+    Remat changes what the backward pass keeps, never a value."""
+    if policy == "none":
+        return fn
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if policy in SAVED_PRODUCTS:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            list(SAVED_PRODUCTS[policy]))
+    return functools.partial(ckpt.checkpoint, fn, **kw)
 
 
 def _check_family(cfg) -> None:
@@ -263,21 +296,42 @@ class Model(nn.Module):
         h = L.apply_norm(p_l["ln2"], x, cfg.norm)
         return x + L.apply_mlp(p_l["mlp"], h, cfg), kv, (ck, cv)
 
-    def _encoder(self, params: Params, enc_embeds) -> torch.Tensor:
+    def _units(self, params: Params) -> List[list]:
+        """The plan cut into the units remat wraps, the reference's scan
+        bodies: one layer each, or for the hybrid family one group (its
+        ssm layers and the shared block after them)."""
+        plan = self._plan(params)
+        if self.cfg.family != "hybrid":
+            return [[step] for step in plan]
+        n = self.cfg.hybrid_period + 1
+        return [plan[i:i + n] for i in range(0, len(plan), n)]
+
+    def _layer_fn(self, params: Params) -> Callable:
+        """How a unit runs: under ``cfg.remat`` when a graph is recorded
+        on the parameters, else as it is."""
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in leaves(params)):
+            return lambda fn: remat(fn, self.cfg.remat)
+        return lambda fn: fn
+
+    def _encoder(self, params: Params, enc_embeds,
+                 wrap: Callable = lambda fn: fn) -> torch.Tensor:
         """The encdec encoder: ``enc_embeds`` (B, S_enc, D) in the compute
         dtype plus the sinusoidal table, non-causal plain self-attention
         (rope still applies, as in the reference) and the MLP in every
-        layer, then ``enc_norm``."""
+        layer (each through ``wrap``), then ``enc_norm``."""
         cfg = self.cfg
         x = torch.as_tensor(enc_embeds, device=self.device).to(self.dtype)
         b, s = x.shape[:2]
         x = x + L.sinusoidal_positions(s, cfg.d_model, self.device).to(
             self.dtype)[None]
         positions = torch.arange(s, device=self.device)[None].expand(b, s)
+
+        def layer(x, p_l):
+            return self._dense_layer_fwd(p_l, x, positions, use_kernel=False,
+                                         causal=False)[0]
         for i in range(cfg.num_encoder_layers):
-            x = self._dense_layer_fwd(_layer(params["enc_layers"], i), x,
-                                      positions, use_kernel=False,
-                                      causal=False)[0]
+            x = wrap(layer)(x, _layer(params["enc_layers"], i))
         return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _ssm_layer_fwd(self, p_l: Params, x: torch.Tensor):
@@ -291,27 +345,35 @@ class Model(nn.Module):
         cfg = self.cfg
         x, positions, mask, labels = self._embed_inputs(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        wrap = self._layer_fn(params)
+        enc_out = None
         if cfg.family == "encdec":
-            enc_out = self._encoder(params, batch["encoder_embeds"])
-        for kind, _, p_l, _ in self._plan(params):
-            if kind == "ssm":
-                x = self._ssm_layer_fwd(p_l, x)
-            elif kind == "cross":
-                x = self._cross_layer_fwd(p_l, x, positions, enc_out)[0]
-            else:
-                x, _, a = self._dense_layer_fwd(p_l, x, positions)
-                aux = aux + a
+            enc_out = self._encoder(params, batch["encoder_embeds"], wrap)
+
+        def unit(x, aux, steps):
+            for kind, _, p_l, _ in steps:
+                if kind == "ssm":
+                    x = self._ssm_layer_fwd(p_l, x)
+                elif kind == "cross":
+                    x = self._cross_layer_fwd(p_l, x, positions, enc_out)[0]
+                else:
+                    x, _, a = self._dense_layer_fwd(p_l, x, positions)
+                    aux = aux + a
+            return x, aux
+        for steps in self._units(params):
+            x, aux = wrap(unit)(x, aux, steps)
         x = L.apply_norm(params["final_norm"], x, cfg.norm)
         logits = L.apply_unembed(params["embed"], x, cfg)
         return logits, (aux, mask, labels)
 
-    @torch.no_grad()
     def loss(self, params: Params, batch):
         """Mean next-token cross-entropy over the positions that have a
         label (every one but the last), in float32; returns (loss,
-        {"ce", "aux", "tokens"}).  Values only: it scores a batch and
-        builds no graph (the kernels have no backward; training is a
-        later slice)."""
+        {"ce", "aux", "tokens"}).  It records a graph only where
+        parameters require grad (``train.step`` differentiates it); with
+        ``init``'s parameters it scores a batch and builds none.  The
+        kernels have no backward: with ``use_kernel`` and parameters that
+        require grad, the kernel wrappers raise."""
         logits, (aux, mask, labels) = self.forward(params, batch)
         lf = logits.float()
         lse = torch.logsumexp(lf, dim=-1)

@@ -13,8 +13,9 @@ Dtypes follow the reference exactly: the projections, the (Q, Q, H)
 decay tiles, ``C B^T`` and ``y_intra`` in the compute dtype, ``y_inter``
 and the state-update operands cast from float32 to it, the state itself
 float32.  ``_causal_conv`` stays the reference's shifted sum (no cuDNN,
-so no TF32 question).  Left out: the sharding specs (``spec_ssm``,
-``spec_ssm_cache``) and the remat of the chunk body (a training concern).
+so no TF32 question).  ``ssd_chunked`` remats its chunk body when it
+records a graph, as the reference does.  Left out: the sharding specs
+(``spec_ssm``, ``spec_ssm_cache``).
 """
 from __future__ import annotations
 

@@ -1,13 +1,17 @@
-"""Training utilities: the optimizers' inits (AdamW and Adafactor) and
-AdamW's update (``train.optimizer``; gradient calibration,
-``core.calibrate.fit_fastsim_params``, steps with it), and the train
-state the checkpoints carry (``train.state``: ``TrainState``,
-``make_train_state``).  The training step, the loop and the remaining
-updates are still to be ported (ROADMAP §1)."""
-from .optimizer import (adafactor_init, adamw_init, adamw_update,
-                        clip_by_global_norm, global_norm, opt_init)
+"""Training: the optimizers (``train.optimizer``: AdamW and Adafactor,
+their inits and updates; gradient calibration,
+``core.calibrate.fit_fastsim_params``, steps with AdamW), the train state
+the checkpoints carry (``train.state``: ``TrainState``,
+``make_train_state``) and the training step (``train.step``:
+``make_train_step``, ``train_step``).  The training loop and its launcher
+are still to be ported (ROADMAP §1)."""
+from .optimizer import (adafactor_init, adafactor_update, adamw_init,
+                        adamw_update, clip_by_global_norm, global_norm,
+                        opt_init, opt_update)
 from .state import TrainState, make_train_state
+from .step import make_train_step, train_step
 
-__all__ = ["adafactor_init", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "global_norm", "opt_init", "TrainState",
-           "make_train_state"]
+__all__ = ["adamw_init", "adamw_update", "adafactor_init",
+           "adafactor_update", "clip_by_global_norm", "global_norm",
+           "opt_init", "opt_update", "TrainState", "make_train_state",
+           "train_step", "make_train_step"]

@@ -1,41 +1,54 @@
-"""The port of ``repro.train.optimizer``: AdamW's init and update, and
-Adafactor's init.  The inits take any tree of tensors (nested dicts,
-lists, tuples), as the reference's take pytrees, and return the
-reference's state layout: ``{"m": tree, "v": tree, "count": 0-d int32}``
-for AdamW and ``{"f": tree of {"vr", "vc"} or {"v"}, "count": 0-d
-int32}`` for Adafactor, the count on the device of the first parameter.
-``adamw_update`` steps lists of tensors (what gradient calibration
-passes); the tree-aware updates and Adafactor's update come with the
-training step.
+"""The port of ``repro.train.optimizer``: AdamW and Adafactor, their
+inits and updates, and ``opt_init`` / ``opt_update`` by name.  Every
+function takes trees of tensors (nested dicts, lists, tuples and
+``NamedTuple``s), as the reference's take pytrees, flattened in the
+reference's one order (``repro_torch._tree``); gradient calibration steps
+a list ``[theta]`` with AdamW.  The states have the reference's layout:
+``{"m": tree, "v": tree, "count": 0-d int32}`` for AdamW and ``{"f": tree
+of {"vr", "vc"} or {"v"}, "count": 0-d int32}`` for Adafactor, the count
+on the device of the first parameter.  The logical sharding specs
+(``opt_state_specs``) are not ported: the port runs on one device.
 
 Every step runs in float32, as the reference's does: the moments are
-float32, the gradient is cast to float32 before it enters them, the bias
-corrections ``1 - b**count`` are float32, and a parameter is updated in
-float32 and cast back to its own dtype.  A float64 parameter is therefore
-rounded to float32 at every step, as in the reference.
+float32, the gradient is cast to float32 before it enters them, AdamW's
+bias corrections ``1 - b**count`` are float32, and a parameter is updated
+in float32 and cast back to its own dtype.  A float64 parameter is
+therefore rounded to float32 at every step, as in the reference.  The
+updates are pure: they return new tensors and modify none they are given.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from repro_torch._tree import map_with_keys
+from repro_torch._tree import leaves, map_with_keys, unflatten
 
 F32 = torch.float32
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the float32 sum of squares over every tensor (0-d float32)."""
-    total = sum(torch.sum(torch.square(x.to(F32))) for x in tensors)
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the float32 sum of squares over every leaf (0-d float32),
+    summed in flatten order."""
+    total = sum(torch.sum(torch.square(x.to(F32))) for x in leaves(tree))
     return torch.sqrt(torch.as_tensor(total, dtype=F32))
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
-                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
+    """``grads`` scaled down to a global norm of at most ``max_norm``, and
+    the global norm before the scaling."""
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return [g * scale for g in grads], gn
+    return map_with_keys(lambda _, g: g * scale, grads), gn
+
+
+def _leaves_like(params, tree, what: str) -> list:
+    """``tree``'s leaves, one for each leaf of ``params`` (gradients and
+    AdamW's moments have the parameters' tree)."""
+    out, n = leaves(tree), len(leaves(params))
+    if len(out) != n:
+        raise ValueError(f"{what}: {len(out)} leaves for {n} parameters")
+    return out
 
 
 def _init(params, init_one: Callable[[torch.Tensor], Any]):
@@ -95,21 +108,23 @@ def _bias_correction(b: float, count: int, device: torch.device
     return (1.0 - torch.pow(b32, c32)).to(device)
 
 
-def adamw_update(params: Sequence[torch.Tensor],
-                 grads: Sequence[torch.Tensor], state: Dict, *, lr: float,
+def adamw_update(params, grads, state: Dict, *, lr: float,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_grad_norm: float = 1.0
-                 ) -> Tuple[List[torch.Tensor], Dict, torch.Tensor]:
-    """One AdamW step; returns ``(new_params, new_state, grad_norm)``.
-    Pure: neither ``params`` nor ``state`` is modified."""
-    grads, gn = clip_by_global_norm(grads, max_grad_norm)
+                 ) -> Tuple[Any, Dict, torch.Tensor]:
+    """One AdamW step on trees; returns ``(new_params, new_state,
+    grad_norm)``, ``grad_norm`` taken before the clip."""
+    grads, gn = clip_by_global_norm(_leaves_like(params, grads, "grads"),
+                                    max_grad_norm)
     count = state["count"] + 1
     n = int(count)               # the one read of the count per update
     corrections: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
     new_p, new_m, new_v = [], [], []
     # Python scalars meet float32 tensors in float32, as JAX's weakly
     # typed scalars do
-    for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+    for p, g, m, v in zip(leaves(params), grads,
+                          _leaves_like(params, state["m"], "m"),
+                          _leaves_like(params, state["v"], "v")):
         g = g.to(F32)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
@@ -123,4 +138,69 @@ def adamw_update(params: Sequence[torch.Tensor],
         new_p.append((p.to(F32) - lr * step).to(p.dtype))
         new_m.append(m)
         new_v.append(v)
-    return new_p, {"m": new_m, "v": new_v, "count": count}, gn
+    return (unflatten(params, new_p),
+            {"m": unflatten(params, new_m), "v": unflatten(params, new_v),
+             "count": count}, gn)
+
+
+def _factors(params, f) -> list:
+    """Adafactor's moments parameter by parameter: ``f``'s leaves taken in
+    flatten order, two for a factored parameter (a dict's keys flatten
+    sorted: "vc", then "vr") and one ("v") for any other."""
+    it = iter(leaves(f))
+    out = [{"vc": next(it), "vr": next(it)} if _factored(p.shape)
+           else {"v": next(it)} for p in leaves(params)]
+    if next(it, None) is not None:
+        raise ValueError("adafactor_update: more moments than parameters")
+    return out
+
+
+def _adafactor_one(p: torch.Tensor, g: torch.Tensor, f: Dict, *, lr: float,
+                   decay: float, eps: float, weight_decay: float,
+                   clip_threshold: float) -> Tuple[torch.Tensor, Dict]:
+    """One leaf's Adafactor step: (new parameter, new moments)."""
+    g = g.to(F32)
+    g2 = torch.square(g) + eps
+    if _factored(p.shape):
+        vr = decay * f["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
+        vc = decay * f["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+        rfac = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                                min=eps)
+        update = g / (torch.sqrt(rfac)[..., None]
+                      * torch.sqrt(vc)[..., None, :] + 1e-12)
+        newf = {"vr": vr, "vc": vc}
+    else:
+        v = decay * f["v"] + (1 - decay) * g2
+        update = g / (torch.sqrt(v) + 1e-12)
+        newf = {"v": v}
+    rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
+    update = update / torch.clamp(rms / clip_threshold, min=1.0)
+    p32 = p.to(F32)
+    return (p32 - lr * update - lr * weight_decay * p32).to(p.dtype), newf
+
+
+def adafactor_update(params, grads, state: Dict, *, lr: float,
+                     decay: float = 0.99, eps: float = 1e-30,
+                     weight_decay: float = 0.0, max_grad_norm: float = 1.0,
+                     clip_threshold: float = 1.0
+                     ) -> Tuple[Any, Dict, torch.Tensor]:
+    """One Adafactor step on trees; returns ``(new_params, new_state,
+    grad_norm)``.  A leaf of two or more axes keeps the row and column
+    means of ``g**2 + eps`` (decayed), and divides by the square root of
+    their outer product normalised by the row mean; any other leaf keeps
+    the full ``v``.  Each leaf's update is scaled down to an RMS of at
+    most ``clip_threshold``."""
+    grads, gn = clip_by_global_norm(_leaves_like(params, grads, "grads"),
+                                    max_grad_norm)
+    out = [_adafactor_one(p, g, f, lr=lr, decay=decay, eps=eps,
+                          weight_decay=weight_decay,
+                          clip_threshold=clip_threshold)
+           for p, g, f in zip(leaves(params), grads,
+                              _factors(params, state["f"]))]
+    return (unflatten(params, [o[0] for o in out]),
+            {"f": unflatten(params, [o[1] for o in out]),
+             "count": state["count"] + 1}, gn)
+
+
+def opt_update(name: str) -> Callable:
+    return {"adamw": adamw_update, "adafactor": adafactor_update}[name]

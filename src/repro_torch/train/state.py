@@ -1,6 +1,6 @@
 """The train state, the port of ``repro.train.step``'s ``TrainState`` and
-``make_train_state``: what a checkpoint saves and restores.  The step
-that updates it is not ported yet (ROADMAP §1)."""
+``make_train_state``: what a checkpoint saves and restores and what
+``train.step`` updates."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple

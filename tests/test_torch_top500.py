@@ -19,6 +19,7 @@ import os
 
 import pytest
 
+from repro_torch.core import fastsim
 from repro_torch.core.fastsim import trace_count
 from repro_torch.platforms import (Platform, bulk_register, get_platform,
                                    list_platforms, unregister)
@@ -67,9 +68,19 @@ def ref():
 
 @pytest.fixture(scope="module")
 def fleet():
-    t0 = trace_count()
-    report = predict_fleet(load_sample(), tuning=SMOKE_TUNING, device="cpu")
-    report.new_compiles = trace_count() - t0
+    """The fleet's report, its new compiles counted from an empty shape
+    set: ``trace_count`` counts every shape the process has dispatched, so
+    a test of another file that ran the same bucket first in this worker
+    would otherwise leave the fleet 0 to count.  The shapes seen before
+    are merged back afterwards."""
+    seen = set(fastsim._SHAPES_SEEN)
+    fastsim._SHAPES_SEEN.clear()
+    try:
+        report = predict_fleet(load_sample(), tuning=SMOKE_TUNING,
+                               device="cpu")
+        report.new_compiles = trace_count()
+    finally:
+        fastsim._SHAPES_SEEN.update(seen)
     return report
 
 

@@ -169,9 +169,9 @@ after:
     128 prompt and 16 new tokens, 4 slots), which launches no kernel, as
     the reference's engine does, against the plain engine in bfloat16
     and float32.
-  * The encdec family: whisper-medium at full width and depth (24
-    encoder and 24 decoder layers, d_model 1024, 16 heads of 64, 1500
-    encoder frames, vocab 51,865, seeded weights), on which no kernel of
+  * The encdec family: whisper-medium at full width (d_model 1024, 16
+    heads of 64, 1500 encoder frames, vocab 51,865, seeded weights), its
+    24 encoder and 24 decoder layers cut to 8 each, on which no kernel of
     the port runs (the reference runs every encdec attention plain; the
     three launch counts must stay 0 over the phase).  ``Model.loss`` and
     ``forward`` on 4 sequences of 448 tokens, each behind its own 1500
@@ -241,6 +241,26 @@ after:
     step built in float32) must each break the gate ``TRAIN_FAULTS``
     lists and no other.  The bf16 gradient pass is then timed at 4 x 2048
     tokens under each remat policy, with its peak device memory.
+  * The training loop: ``train`` on full-width qwen2-0.5b as configured
+    (bf16 compute, AdamW) on the data pipeline's 4 x 256-token stream
+    (seed 0, lr 3e-4), every kernel's launch count held at 0.  TL1 four
+    steps straight against ``make_train_step``'s function called four
+    times by hand on the same seed's state and batches: the losses equal
+    and every leaf of the final state bit-equal; TL2 two steps with a
+    checkpoint, then a resume to four: the resume logged, the final state
+    and its step-4 checkpoint bit-equal to the straight run's; TL3 the
+    loss falling; TL4 ``python -m repro_torch.launch.train --arch
+    qwen2-0.5b --steps 3 --global-batch 4 --seq-len 256`` in a child
+    process beside TL5 and the faults' runs, whose printed losses must be
+    TL1's to four decimals; TL5 all
+    ten archs reduced, in float32, three steps with a resume after the
+    first (qwen3-moe-235b-a22b, Adafactor, in 2 microbatches), on the card
+    against the host CPU from the same weights (each loss within 1e-5).
+    Three faults planted in the loop on reduced qwen2-0.5b (the stream
+    restarting at a resume, the optimizer state dropped at a resume, every
+    step fed the next step's batch) must each break the gates
+    ``LOOP_FAULTS`` lists and no other.  The runs' step times, how long
+    each checkpoint save held the loop and the restores are printed.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -1017,12 +1037,16 @@ FLASH_RAGGED_80 = ((2, 300, 4, 3, 80), 177)
 # engine runs flash once a layer a prefill, 8 prefills
 HYBRID_LOSS_LAUNCHES = {"ssd_scan": 54, "flash_attention_fwd": 9}
 STABLELM_SERVE_LAUNCHES = 32 * SERVE_REQUESTS
-# the encdec family: whisper-medium at full width and depth, scored on
-# ENCDEC_B sequences of Whisper's 448-token text context, each behind its
-# own 1500 seeded encoder frames (the config's encoder_seq; arXiv:2212.04356
-# gives both contexts); G2's cached path prefills the first
-# ENCDEC_S - ENCDEC_DECODE tokens and decodes the rest teacher-forced
+# the encdec family: whisper-medium at full width, its 24 encoder and 24
+# decoder layers cut to ENCDEC_LAYERS each, scored on ENCDEC_B sequences of
+# Whisper's 448-token text context, each behind its own 1500 seeded encoder
+# frames (the config's encoder_seq; arXiv:2212.04356 gives both contexts);
+# G2's cached path prefills the first ENCDEC_S - ENCDEC_DECODE tokens and
+# decodes the rest teacher-forced.  Most of the phase's wall is the host
+# CPU's float32 baselines (one loss, a 4-request engine), which scale with
+# depth; the cut keeps the whole script well inside its time limit
 ENCDEC_ARCH = "whisper-medium"
+ENCDEC_LAYERS = 8
 ENCDEC_B, ENCDEC_S, ENCDEC_DECODE = 4, 448, 16
 ENCDEC_SERVE = (4, 128, 16, 4)
 # the faults planted on the card side, and the gates each must break
@@ -1117,6 +1141,48 @@ TRAIN_LONG_REMAT = ("full", "dots_nb", "dots", "none")
 TRAIN_FAULTS = {"attention_cut": ("T1",), "stale_bias_correction": ("T2",),
                 "microbatch_sum": ("T3",), "bf16_attention_cut": ("T5",),
                 "bf16_as_float32": ("T5",)}
+# The training loop: ``train`` on TRAIN_ARCH at full width as configured
+# (bf16 compute) on TRAIN_DATA's stream, LOOP_STEPS steps straight (TL1
+# against a hand-driven sequence of the step, TL3 the loss falling), and
+# LOOP_RESUME_AT steps then a resume to LOOP_STEPS (TL2, bit-equal to the
+# straight run); TL4 the launcher's first LOOP_LAUNCH_STEPS steps in a
+# child process
+LOOP_STEPS, LOOP_RESUME_AT, LOOP_LAUNCH_STEPS = 4, 2, 3
+LOOP_DATA = {"global_batch": TRAIN_DATA["global_batch"],
+             "seq_len": TRAIN_DATA["seq_len"], "seed": TRAIN_DATA["seed"],
+             "lr": TRAIN_LR}
+# TL5: every arch reduced, in float32, LOOP_FAMILY_STEPS steps with a
+# resume after the first, on the card and on the host CPU from the same
+# CPU-generator weights; LOOP_MICROBATCH_ARCH (Adafactor) in 2 microbatches.
+# Its limit on each loss, relative: train_phase's T1 read the full-width
+# float32 loss 8.5e-8 off the host's and the gradients 3.3e-6 of scale;
+# an AdamW or Adafactor step moves each weight by at most ~lr, normalised
+# by the gradient's own size, so two updates built on such gradients move
+# the loss by far less than T1's 1e-5 loss limit, which TL5 keeps
+LOOP_FAMILY_STEPS = 3
+LOOP_FAMILY_DATA = {"global_batch": 2, "seq_len": 32, "seed": 0,
+                    "lr": TRAIN_LR}
+LOOP_MICROBATCH_ARCH = "qwen3-moe-235b-a22b"
+LOOP_TL5_LIMIT = 1e-5
+# the faults' runs: reduced TRAIN_ARCH on this stream, at T3's larger lr:
+# four steps of the reduced model at lr 3e-4 move its loss less than the
+# batches' spread does (host CPU: 6.2610 -> 6.2591), at 1e-3 by 0.02
+LOOP_FAULT_DATA = {"global_batch": 4, "seq_len": 64, "seed": 0,
+                   "lr": TRAIN_LR_FALL}
+# the faults planted in the loop on the card's side (the host's TL5 run and
+# the hand-driven TL1 baseline never run them), each with the gates it
+# must break (every other gate of that run must pass): after a restore,
+# the stream fed from its first batch again; after a restore, the
+# optimizer state started afresh; every step fed the next step's batch.
+# TL5 resumes after its first step, so it reads the two resume faults too;
+# TL2 compares two runs of the same loop, so it cannot read the third
+LOOP_FAULTS = {"stream_restarts_on_resume": ("TL2", "TL5"),
+               "moments_dropped_on_resume": ("TL2", "TL5"),
+               "batch_of_next_step": ("TL1", "TL5")}
+LOOP_LINE = re.compile(r"\[train\] step +(\d+) loss (\S+) \((\d+) ms"
+                       r"( STRAGGLER)?\)$")
+LOOP_DONE = re.compile(r"\[train\] done: loss (\S+) -> (\S+) \(median step "
+                       r"(\d+) ms\)$")
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -1944,6 +2010,54 @@ def campaign_phase(dev):
           f"campaign edition study: new bucket shapes {compiles}")
 
 
+# One call of the port's host Python (the DES) in a child interpreter: it
+# prints the call's result and wall seconds as JSON.  The DES is
+# single-threaded Python, so record_phase runs its cells in several such
+# children at once
+HOST_CALL = r"""
+import importlib, json, sys, time
+module, name, args, kwargs = json.loads(sys.argv[1])
+call = getattr(importlib.import_module(module), name)
+t0 = time.perf_counter()
+got = call(*args, **kwargs)
+print(json.dumps({"got": got, "wall": time.perf_counter() - t0}))
+"""
+
+
+@contextlib.contextmanager
+def host_calls(calls):
+    """Start one child interpreter per ``(module, function, args, kwargs)``
+    of ``calls`` (``HOST_CALL``), all at once, in the working directory,
+    and yield a function that waits for them and returns each one's
+    (result, wall seconds) in order.  A child still running when the block
+    ends is killed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = []
+
+    def results():
+        out = []
+        for proc, call in zip(procs, calls):
+            stdout, stderr = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"{call[0]}.{call[1]}{tuple(call[2])}"
+                  f" exited {proc.returncode}: {stderr[-2000:]}")
+            res = json.loads(stdout.strip().splitlines()[-1])
+            out.append((res["got"], res["wall"]))
+        return out
+    try:
+        for call in calls:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", HOST_CALL, json.dumps(call)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        yield results
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+
+
 def record_phase(dev):
     """Slice 8c-p: the dry-run-record predictions and the fault-tolerance
     layer on ``DRYRUN_RECORDS``, written in the reference's schema into
@@ -1954,13 +2068,9 @@ def record_phase(dev):
     the reference's answer: equal (copied host Python), the fastsim fault
     impact within 1e-12.  Only ``simulate_fault_impact`` takes ``dev``
     (its fastsim backend); the rest runs on the host, as the reference's
-    does."""
-    from repro_torch.core import predict_cell, predict_cell_des, whatif
-    from repro_torch.faults import FaultSpec
-    from repro_torch.ft import (restart_plan_for_faults,
-                                simulate_fault_impact,
-                                simulate_straggler_impact)
-    from repro_torch.workloads import get_workload
+    does: the DES cells and the straggler call each in a child interpreter
+    of its own, all at once (``host_calls``)."""
+    from repro_torch.core import predict_cell, whatif
     t_phase = time.perf_counter()
     des_events = des_wall = 0
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -1998,12 +2108,21 @@ def record_phase(dev):
             check(got == want, f"whatif {key}: {got} != the reference's "
                   f"{want}")
 
-        for cell in RECORD_DES:
+        # the DES cells and the straggler call (two DES runs), each in a
+        # child of its own, all at once, while the fault impacts and the
+        # restart plan run here
+        s = RECORD_STRAGGLER
+        des_children = host_calls(
+            [("repro_torch.core", "predict_cell_des", list(cell), {})
+             for cell in RECORD_DES]
+            + [("repro_torch.ft", "simulate_straggler_impact",
+                [s["arch"], s["shape"]], {"slowdown": s["slowdown"]})])
+        with des_children as des_results:
+            record_faults_and_plan(dev)
+            *cells, (slow, slow_wall) = des_results()
+        for cell, (got, wall) in zip(RECORD_DES, cells):
             name = "__".join(cell)
             want = REFERENCE_RECORD_DES[name]
-            t0 = time.perf_counter()
-            got = predict_cell_des(*cell)
-            wall = time.perf_counter() - t0
             des_events += got["events"]
             des_wall += wall
             print(f"predict_cell_des {name}: step_s={got['step_s']!r} "
@@ -2014,55 +2133,59 @@ def record_phase(dev):
             check(got == want, f"predict_cell_des {name}: {got} != the "
                   f"reference's {want}")
 
-        s = RECORD_STRAGGLER
-        t0 = time.perf_counter()
-        got = simulate_straggler_impact(s["arch"], s["shape"],
-                                        slowdown=s["slowdown"])
-        wall = time.perf_counter() - t0
         want = dict(REFERENCE_RECORD_STRAGGLER, baseline_s=REFERENCE_RECORD_DES[
             "__".join((s["arch"], s["shape"], "16x16"))]["step_s"])
-        print(f"simulate_straggler_impact {s}: {got} equal={got == want} "
-              f"host_wall_s={wall:.3f} (two DES runs)", flush=True)
-        check(got == want, f"simulate_straggler_impact: {got} != the "
+        print(f"simulate_straggler_impact {s}: {slow} equal={slow == want} "
+              f"host_wall_s={slow_wall:.3f} (two DES runs)", flush=True)
+        check(slow == want, f"simulate_straggler_impact: {slow} != the "
+              f"reference's {want}")
+    print(f"record phase: host_wall_s={time.perf_counter() - t_phase:.3f} "
+          f"des_events={des_events} des_host_wall_s={des_wall:.3f} (summed "
+          f"over the cells, {len(RECORD_DES)} of them and the straggler "
+          f"call run at once) des_events_per_s={des_events / des_wall:,.0f}",
+          flush=True)
+
+
+def record_faults_and_plan(dev):
+    """``record_phase``'s fault impacts (fastsim on ``dev``, the DES) and
+    restart plan against the reference's answers."""
+    from repro_torch.faults import FaultSpec
+    from repro_torch.ft import restart_plan_for_faults, simulate_fault_impact
+    from repro_torch.workloads import get_workload
+    for key, f in FAULT_IMPACT.items():
+        wl = get_workload("transformer", **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in f["workload"].items()})
+        t0 = time.perf_counter()
+        got = simulate_fault_impact(wl, f["platform"],
+                                    FaultSpec.from_dict(f["faults"]),
+                                    des=f["des"], device=dev)
+        wall = time.perf_counter() - t0
+        want = REFERENCE_RECORD_FAULTS[key]
+        if f["des"]:
+            blowup = got.pop("blowup")
+            ok = got == want and blowup == math.inf
+            err = 0.0
+        else:
+            err = max(rel_err(got[k], want[k]) for k in want
+                      if isinstance(want[k], float))
+            ok = (got.keys() == want.keys() and err <= 1e-12
+                  and all(got[k] == want[k] for k in want
+                          if not isinstance(want[k], float)))
+        print(f"simulate_fault_impact {key}: {got} max_rel_err="
+              f"{err:.3e} ok={ok} host_wall_s={wall:.3f}", flush=True)
+        check(ok, f"simulate_fault_impact {key}: {got} != the "
               f"reference's {want}")
 
-        for key, f in FAULT_IMPACT.items():
-            wl = get_workload("transformer", **{
-                k: tuple(v) if isinstance(v, list) else v
-                for k, v in f["workload"].items()})
-            t0 = time.perf_counter()
-            got = simulate_fault_impact(wl, f["platform"],
-                                        FaultSpec.from_dict(f["faults"]),
-                                        des=f["des"], device=dev)
-            wall = time.perf_counter() - t0
-            want = REFERENCE_RECORD_FAULTS[key]
-            if f["des"]:
-                blowup = got.pop("blowup")
-                ok = got == want and blowup == math.inf
-                err = 0.0
-            else:
-                err = max(rel_err(got[k], want[k]) for k in want
-                          if isinstance(want[k], float))
-                ok = (got.keys() == want.keys() and err <= 1e-12
-                      and all(got[k] == want[k] for k in want
-                              if not isinstance(want[k], float)))
-            print(f"simulate_fault_impact {key}: {got} max_rel_err="
-                  f"{err:.3e} ok={ok} host_wall_s={wall:.3f}", flush=True)
-            check(ok, f"simulate_fault_impact {key}: {got} != the "
-                  f"reference's {want}")
-
-        r = RESTART_SCENARIO
-        plan = dataclasses.asdict(restart_plan_for_faults(
-            FaultSpec.from_dict(r["faults"]), global_batch=r["global_batch"],
-            resume_step=r["resume_step"], old_mesh=tuple(r["old_mesh"]),
-            ranks_per_node=r["ranks_per_node"]))
-        print(f"restart_plan_for_faults: {plan} "
-              f"equal={plan == REFERENCE_RECORD_PLAN}", flush=True)
-        check(plan == REFERENCE_RECORD_PLAN, f"restart plan: {plan} != the "
-              f"reference's {REFERENCE_RECORD_PLAN}")
-    print(f"record phase: host_wall_s={time.perf_counter() - t_phase:.3f} "
-          f"des_events={des_events} des_host_wall_s={des_wall:.3f} "
-          f"des_events_per_s={des_events / des_wall:,.0f}", flush=True)
+    r = RESTART_SCENARIO
+    plan = dataclasses.asdict(restart_plan_for_faults(
+        FaultSpec.from_dict(r["faults"]), global_batch=r["global_batch"],
+        resume_step=r["resume_step"], old_mesh=tuple(r["old_mesh"]),
+        ranks_per_node=r["ranks_per_node"]))
+    print(f"restart_plan_for_faults: {plan} "
+          f"equal={plan == REFERENCE_RECORD_PLAN}", flush=True)
+    check(plan == REFERENCE_RECORD_PLAN, f"restart plan: {plan} != the "
+          f"reference's {REFERENCE_RECORD_PLAN}")
 
 
 def network_phase(rates_k, pairs):
@@ -4041,12 +4164,14 @@ def card_line() -> str:
 
 
 def encdec_phase(dev):
-    """(k) whisper-medium at full width and depth (24 encoder and 24
-    decoder layers, d_model 1024, 16 heads of 64, 1500 frames, vocab
-    51,865; seeded weights): ``encdec_checks``.  No kernel runs on this
-    path, as in the reference, so it returns no launches."""
+    """(k) whisper-medium at full width (d_model 1024, 16 heads of 64,
+    1500 frames, vocab 51,865; seeded weights), ``ENCDEC_LAYERS`` encoder
+    and decoder layers: ``encdec_checks``.  No kernel runs on this path,
+    as in the reference, so it returns no launches."""
     from repro_torch.configs import get_config
-    cfg = get_config(ENCDEC_ARCH)
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
+                              num_layers=ENCDEC_LAYERS,
+                              num_encoder_layers=ENCDEC_LAYERS)
     params = lm_params(cfg, dev)
     print(f"{ENCDEC_ARCH}: {param_count(params)} parameters; card "
           f"{card_line()}", flush=True)
@@ -5090,6 +5215,413 @@ def train_phase(dev):
             for k in ("flash_attention_fwd", "ssd_scan")}
 
 
+def bits(t):
+    """``t``'s bits: a floating tensor viewed as integers of its width."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def unequal_leaves(got, want):
+    """The keys of two trees' leaves that differ in key, dtype, shape or
+    any bit (compared on ``got``'s device)."""
+    got, want = keyed(got), keyed(want)
+    out = sorted(set(got) ^ set(want))
+    for key in sorted(set(got) & set(want)):
+        g, w = got[key], want[key].to(got[key].device)
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                not torch.equal(bits(g), bits(w)):
+            out.append(key)
+    return out
+
+
+@contextlib.contextmanager
+def loop_fault(fault, cfg):
+    """A fault in the training loop (``LOOP_FAULTS``): after a restore, the
+    data stream fed from its first batch again (``shard_at(step -
+    start)``); after a restore, the optimizer state started afresh
+    (``opt_init`` of the restored parameters); or every step fed the next
+    step's batch (``shard_at(step + 1)``)."""
+    from repro_torch.train import loop, opt_init
+    if fault == "batch_of_next_step":
+        class NextBatch(loop.SyntheticLM):
+            def shard_at(self, step, dp_rank, dp_size):
+                return super().shard_at(step + 1, dp_rank, dp_size)
+        with swapped(loop, "SyntheticLM", NextBatch):
+            yield
+    elif fault == "stream_restarts_on_resume":
+        streams, real = [], loop.latest_step
+
+        class Restarted(loop.SyntheticLM):
+            start = 0
+
+            def __init__(self, dcfg):
+                super().__init__(dcfg)
+                streams.append(self)
+
+            def shard_at(self, step, dp_rank, dp_size):
+                return super().shard_at(step - self.start, dp_rank, dp_size)
+
+        def latest(ckpt_dir):
+            last = real(ckpt_dir)
+            streams[-1].start = last or 0
+            return last
+        with swapped(loop, "SyntheticLM", Restarted), \
+                swapped(loop, "latest_step", latest):
+            yield
+    elif fault == "moments_dropped_on_resume":
+        real = loop.restore_checkpoint
+
+        def fresh(*args, **kwargs):
+            out = real(*args, **kwargs)
+            return out._replace(opt=opt_init(cfg.optimizer)(out.params))
+        with swapped(loop, "restore_checkpoint", fresh):
+            yield
+    else:
+        yield
+
+
+@contextlib.contextmanager
+def loop_timers(times):
+    """Append to ``times`` ("save", "wait", "restore") the seconds of each
+    ``AsyncCheckpointer.save`` (how long it held the loop: the wait for the
+    previous write, then the host copy), each ``wait`` (``save``'s own
+    included) and each restore ``train`` makes."""
+    from repro_torch.checkpoint import checkpoint as impl
+    from repro_torch.train import loop
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+        return call
+    saver = impl.AsyncCheckpointer
+    with swapped(saver, "save", timed("save", saver.save)), \
+            swapped(saver, "wait", timed("wait", saver.wait)), \
+            swapped(loop, "restore_checkpoint",
+                    timed("restore", loop.restore_checkpoint)):
+        yield
+
+
+def loop_train(cfg, dev, data, steps, fault=None, **kw):
+    """``train(cfg, steps=steps)`` on ``dev`` with ``data``'s keywords
+    (global_batch, seq_len, seed, lr) and ``kw``, ``fault`` planted.
+    Returns its result with its printed lines and wall seconds."""
+    from repro_torch.train import train
+    lines = []
+    with loop_fault(fault, cfg):
+        t0 = time.perf_counter()
+        res = train(cfg, steps=steps, log_fn=lines.append, device=dev,
+                    **data, **kw)
+        device_sync(dev)
+    res.update(lines=lines, wall_s=time.perf_counter() - t0)
+    return res
+
+
+def loop_by_hand(cfg, dev, data, steps):
+    """TL1's baseline, without the loop: ``make_train_state`` from a CPU
+    generator seeded ``data["seed"]`` and ``make_train_step``'s function
+    called ``steps`` times on the pipeline's global batches in order.
+    Returns (the losses, the final state)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import make_train_state, make_train_step
+    ds = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=data["seq_len"],
+        global_batch=data["global_batch"], seed=data["seed"]))
+    step, _ = make_train_step(cfg, lr=data["lr"], device=dev)
+    state = make_train_state(
+        cfg, torch.Generator().manual_seed(data["seed"]), device=dev)
+    losses = []
+    for s in range(steps):
+        tokens = torch.from_numpy(ds.global_batch_at(s)).to(dev)
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+    return losses, state
+
+
+def loop_families(archs):
+    """TL5's cases: (arch, the arch reduced in float32, microbatches)."""
+    from repro_torch.configs import get_config, reduced
+    return [(arch, dataclasses.replace(reduced(get_config(arch)),
+                                       dtype="float32"),
+             2 if arch == LOOP_MICROBATCH_ARCH else 1) for arch in archs]
+
+
+def loop_resumed(cfg, dev, root, fault=None, **kw):
+    """TL5's run of ``cfg`` on ``dev``: ``train`` for one step under a new
+    directory in ``root``, then resumed there to ``LOOP_FAMILY_STEPS``.
+    Returns the losses of both runs in order."""
+    d = tempfile.mkdtemp(dir=root)
+    try:
+        first = loop_train(cfg, dev, LOOP_FAMILY_DATA, 1, fault, ckpt_dir=d,
+                           **kw)
+        rest = loop_train(cfg, dev, LOOP_FAMILY_DATA, LOOP_FAMILY_STEPS,
+                          fault, ckpt_dir=d, **kw)
+    finally:
+        shutil.rmtree(d)
+    return first["losses"] + rest["losses"]
+
+
+def loop_gates(dev, cfg, data, root, fault=None):
+    """The training loop's own gates on ``dev`` ({gate: None if it passes,
+    else why}, readings), with ``fault`` planted in the loop:
+      TL1  ``train`` for ``LOOP_STEPS`` steps straight on ``data`` against
+           ``loop_by_hand``: the losses equal, every leaf of the final
+           state (parameters, both moments, the count, ``step``) bit-equal;
+      TL2  ``train`` for ``LOOP_RESUME_AT`` steps under a new checkpoint
+           directory in ``root`` (one save, at its end), then resumed there
+           to ``LOOP_STEPS``: it logs the resume, its final state is
+           bit-equal to TL1's straight run, the latest step on disk is
+           ``LOOP_STEPS``, and that checkpoint restored is bit-equal to
+           the final state;
+      TL3  the straight run's last loss below its first."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    r, times = {}, {}
+    by_hand, want = loop_by_hand(cfg, dev, data, LOOP_STEPS)
+    with loop_timers(times):
+        straight = loop_train(cfg, dev, data, LOOP_STEPS, fault)
+    tl1 = [] if straight["losses"] == by_hand else [
+        f"losses {straight['losses']}, by hand {by_hand}"]
+    bad = unequal_leaves(straight["state"], want)
+    if bad:
+        tl1.append(f"{len(bad)} leaves differ from the hand-driven state, "
+                   f"first {bad[:3]}")
+    del want
+    r.update(losses=straight["losses"], lines=straight["lines"],
+             median_step_s=straight["median_step_s"],
+             straight_s=straight["wall_s"])
+    tl3 = [] if straight["final_loss"] < straight["first_loss"] else [
+        f"losses {straight['losses']} do not fall"]
+
+    d = tempfile.mkdtemp(dir=root)
+    try:
+        with loop_timers(times):
+            first = loop_train(cfg, dev, data, LOOP_RESUME_AT, fault,
+                               ckpt_dir=d, ckpt_every=100)
+            del first["state"]
+            resumed = loop_train(cfg, dev, data, LOOP_STEPS, fault,
+                                 ckpt_dir=d)
+        r.update(first_s=first["wall_s"], resumed_s=resumed["wall_s"],
+                 resumed_losses=first["losses"] + resumed["losses"],
+                 times=times)
+        tl2 = [] if (f"[train] resumed from step {LOOP_RESUME_AT}"
+                     in resumed["lines"]) else [
+            f"no resume logged: {resumed['lines']}"]
+        bad = unequal_leaves(resumed["state"], straight["state"])
+        if bad:
+            tl2.append(f"{len(bad)} leaves differ from the straight run, "
+                       f"first {bad[:3]}")
+        del straight
+        last = latest_step(d)
+        if last != LOOP_STEPS:
+            tl2.append(f"latest step {last}")
+        else:
+            back = restore_checkpoint(d, last, resumed["state"], device=dev)
+            bad = unequal_leaves(back, resumed["state"])
+            if bad:
+                tl2.append(f"step {last} restored: {len(bad)} leaves differ "
+                           f"from the final state, first {bad[:3]}")
+            del back
+        del resumed
+    finally:
+        shutil.rmtree(d)
+    gates = {g: ("; ".join(why) if why else None)
+             for g, why in (("TL1", tl1), ("TL2", tl2), ("TL3", tl3))}
+    return gates, r
+
+
+def loop_family_gate(dev, families, root, host, host_losses, fault=None):
+    """TL5: each case of ``families`` through ``loop_resumed`` on ``dev``,
+    with ``fault`` planted in the loop there, against the host's run
+    (``host_losses``, {arch: losses}, filled on first use; the host never
+    runs a fault): every loss within ``LOOP_TL5_LIMIT`` relative.  Returns
+    (None if it passes, else why; {arch: its largest gap})."""
+    gaps = {}
+    for arch, fcfg, micro in families:
+        if arch not in host_losses:
+            host_losses[arch] = loop_resumed(fcfg, host, root,
+                                             microbatches=micro)
+        got = loop_resumed(fcfg, dev, root, fault, microbatches=micro)
+        want = host_losses[arch]
+        gaps[arch] = (max(rel_err(g, w) for g, w in zip(got, want))
+                      if len(got) == len(want) == LOOP_FAMILY_STEPS
+                      else math.inf)
+    gap, arch = worst(gaps)
+    why = None if gap <= LOOP_TL5_LIMIT else (
+        f"{gap:.3e} > {LOOP_TL5_LIMIT} at {arch}")
+    return why, gaps
+
+
+@contextlib.contextmanager
+def launcher_child(argv):
+    """``python -m repro_torch.launch.train`` with ``argv`` in a child
+    process started now, beside what the block runs; yields a function
+    that waits for it and returns (its exit code, its output lines, the
+    end of its errors, seconds since its start).  A child still running
+    when the block ends is killed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + argv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+    def finish():
+        out, err = proc.communicate(timeout=600)
+        return (proc.returncode, out.strip().splitlines(), err[-2000:],
+                time.perf_counter() - t0)
+    try:
+        yield finish
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+def loop_launch_gate(argv, child, losses):
+    """TL4 on the launcher's child (``launcher_child``'s result) run with
+    ``argv``: it exits 0, and its step lines and its ``done`` line carry
+    ``losses`` (a straight run's on the same config and data) to four
+    decimals; the ``ms`` fields are not compared.  None if it passes,
+    else why."""
+    code, lines, err, _ = child
+    if code != 0:
+        return f"exited {code}: {err}"
+    steps = int(argv[argv.index("--steps") + 1])
+    want = {s: f"{losses[s]:.4f}" for s in range(steps)
+            if s % 10 == 0 or s == steps - 1}
+    got, done = {}, None
+    for line in lines:
+        if m := LOOP_LINE.match(line):
+            got[int(m[1])] = m[2]
+        elif m := LOOP_DONE.match(line):
+            done = (m[1], m[2])
+    why = [] if got == want else [f"step lines {got}, the straight run's "
+                                  f"{want}"]
+    if done != (want[0], want[steps - 1]):
+        why.append(f"done line {done}, the straight run's "
+                   f"{(want[0], want[steps - 1])}")
+    return "; ".join(why) or None
+
+
+def loop_checks(dev, cfg, archs, fault_arch, root, data=LOOP_DATA,
+                host=torch.device("cpu"), launch_argv=None):
+    """The training loop on ``dev``: ``loop_gates`` (TL1-TL3) on ``cfg``
+    and ``data``, then TL5 (``loop_family_gate``) on every arch of
+    ``archs``; every gate must pass.  Then ``loop_gates`` and TL5 on
+    ``fault_arch`` reduced and ``LOOP_FAULT_DATA``: a clean run must pass
+    every gate, and each fault of ``LOOP_FAULTS`` must break the gates
+    listed for it and no other.  With ``launch_argv``, TL4
+    (``loop_launch_gate``) holds the launcher's child, started after TL2
+    and run beside TL5 and the faults, against the straight run.  Returns
+    the clean run's readings."""
+    from repro_torch.configs import get_config, reduced
+    fault_cfg = reduced(get_config(fault_arch))
+    host_losses = {}
+    gates, r = loop_gates(dev, cfg, data, root)
+    times = r["times"]
+    tl1 = gates["TL1"] or "equal to the hand-driven step's, every leaf " \
+        "bit-equal"
+    tl2 = gates["TL2"] or "final state and its checkpoint bit-equal to " \
+        "the straight run's"
+    print(f"loop TL1 {cfg.name} {cfg.dtype} {LOOP_STEPS} steps of "
+          f"{data}: losses {r['losses']} ({tl1}); the run "
+          f"{r['straight_s']:.3f} s, median step {r['median_step_s']:.4f} s; "
+          f"lines {r['lines']}", flush=True)
+    print(f"loop TL2 {cfg.name}: {LOOP_RESUME_AT} steps, then resumed to "
+          f"{LOOP_STEPS}: losses {r['resumed_losses']} ({tl2}); runs "
+          f"{r['first_s']:.3f} + "
+          f"{r['resumed_s']:.3f} s; each save held the loop "
+          f"{[round(t, 4) for t in times.get('save', [])]} s, waits "
+          f"{[round(t, 4) for t in times.get('wait', [])]} s, restore "
+          f"{[round(t, 4) for t in times.get('restore', [])]} s", flush=True)
+    print(f"loop TL3 {cfg.name}: {r['losses'][0]!r} -> {r['losses'][-1]!r} "
+          f"({gates['TL3'] or 'falls'})", flush=True)
+    with (launcher_child(launch_argv) if launch_argv is not None
+          else contextlib.nullcontext()) as finish:
+        gates["TL5"], gaps = loop_family_gate(
+            dev, loop_families(archs), root, host, host_losses)
+        gap, arch = worst(gaps)
+        print(f"loop TL5 {len(archs)} archs reduced, float32, "
+              f"{LOOP_FAMILY_STEPS} steps of {LOOP_FAMILY_DATA}, resumed "
+              f"after one, card vs host ({host_cpu()}): worst {gap:.3e} at "
+              f"{arch} (limit {LOOP_TL5_LIMIT}); "
+              + ", ".join(f"{a} {g:.3e}" for a, g in gaps.items()),
+              flush=True)
+        failed = {g: why for g, why in gates.items() if why}
+        check(not failed, f"loop {cfg.name}: gates failed: {failed}")
+        for fault in (None,) + tuple(LOOP_FAULTS):
+            t0 = time.perf_counter()
+            got, _ = loop_gates(dev, fault_cfg, LOOP_FAULT_DATA, root, fault)
+            got["TL5"], _ = loop_family_gate(
+                dev, loop_families([fault_arch]), root, host, host_losses,
+                fault)
+            broken = sorted(g for g, why in got.items() if why)
+            want = sorted(LOOP_FAULTS.get(fault, ()))
+            print(f"loop {fault_cfg.name} planted fault {fault}: broke "
+                  f"{broken} (must break {want}); {got}; "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            check(broken == want, f"loop: planted fault {fault} broke "
+                                  f"{broken}, not {want}")
+        if launch_argv is not None:
+            child = finish()
+            why = loop_launch_gate(launch_argv, child, r["losses"])
+            r["launch_s"] = child[3]
+            verdict = why or "the losses TL1's, to four decimals"
+            print(f"loop TL4 python -m repro_torch.launch.train "
+                  f"{' '.join(launch_argv)}: {child[1]} ({verdict}); the "
+                  f"process took {child[3]:.3f} s, beside TL5 and the "
+                  "faults' runs", flush=True)
+            check(why is None, f"loop TL4: {why}")
+    return r
+
+
+def train_loop_phase(dev):
+    """(o) the training loop: ``loop_checks`` on full-width ``TRAIN_ARCH``
+    as configured (494,147,456 parameters, AdamW, bf16 compute) on
+    ``LOOP_DATA``, TL5 on every arch, TL4 through ``python -m
+    repro_torch.launch.train`` at full width, its faults on the reduced
+    config, under a temporary directory removed at the end; TL6 every
+    kernel's launch count held at 0 over the phase (training runs the
+    plain paths).  Returns the launches by path (0 each)."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    root = tempfile.mkdtemp(prefix="train_loop_phase_")
+    try:
+        out = loop_checks(dev, cfg, sorted(ARCHS), TRAIN_ARCH, root,
+                          launch_argv=[
+                              "--arch", TRAIN_ARCH, "--steps",
+                              str(LOOP_LAUNCH_STEPS), "--global-batch",
+                              str(LOOP_DATA["global_batch"]), "--seq-len",
+                              str(LOOP_DATA["seq_len"])])
+    finally:
+        shutil.rmtree(root)
+    torch.cuda.synchronize(dev)
+    launches = {k.__name__: k.launches for k in counted}
+    print(f"loop {cfg.name}: median step {out['median_step_s']:.4f} s; "
+          f"each save held the loop {out['times'].get('save')} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB; phase wall {time.perf_counter() - t0:.3f} s; kernel "
+          f"launches {launches}; card {card_line()}", flush=True)
+    check(not any(launches.values()),
+          f"loop TL6: a kernel was launched on the training loop's path "
+          f"{launches}")
+    return {(k, f"{TRAIN_ARCH} train loop"): 0
+            for k in ("flash_attention_fwd", "ssd_scan")}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -5286,10 +5818,11 @@ def main() -> int:
     # serving launcher (qwen2-0.5b at full width, every arch at --smoke);
     # then the data pipeline and a full-width qwen2-0.5b checkpoint round
     # trip (flash in each of its three losses); then a full-width
-    # qwen2-0.5b training step against the host CPU's (no kernel)
+    # qwen2-0.5b training step against the host CPU's (no kernel); then
+    # the training loop at full width, resumed, and its launcher (no kernel)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
                   hybrid_phase, encdec_phase, launch_phase, ckpt_phase,
-                  train_phase):
+                  train_phase, train_loop_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

@@ -2,16 +2,17 @@
 their inits and updates; gradient calibration,
 ``core.calibrate.fit_fastsim_params``, steps with AdamW), the train state
 the checkpoints carry (``train.state``: ``TrainState``,
-``make_train_state``) and the training step (``train.step``:
-``make_train_step``, ``train_step``).  The training loop and its launcher
-are still to be ported (ROADMAP §1)."""
+``make_train_state``), the training step (``train.step``:
+``make_train_step``, ``train_step``) and the training loop (``train.loop``:
+``train``; its launcher is ``repro_torch.launch.train``)."""
 from .optimizer import (adafactor_init, adafactor_update, adamw_init,
                         adamw_update, clip_by_global_norm, global_norm,
                         opt_init, opt_update)
 from .state import TrainState, make_train_state
 from .step import make_train_step, train_step
+from .loop import train
 
 __all__ = ["adamw_init", "adamw_update", "adafactor_init",
            "adafactor_update", "clip_by_global_norm", "global_norm",
            "opt_init", "opt_update", "TrainState", "make_train_state",
-           "train_step", "make_train_step"]
+           "train_step", "make_train_step", "train"]

@@ -25,8 +25,9 @@ from repro_torch.serve import (HPLPredictionService, PredictionService,
 from repro_torch.campaign import CampaignSpec, run_campaign
 from repro_torch.faults import FaultSpec, sweep_faults
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.train import make_train_state
+from repro_torch.train import make_train_state, train
 from repro_torch.ft import simulate_fault_impact
 from repro_torch.platforms import (des_probe_runs, fit_fastsim_to_des,
                                    get_platform)
@@ -49,7 +50,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 assert {"repro_torch.launch", "repro_torch.launch.serve",
         "repro_torch.data", "repro_torch.data.pipeline",
         "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
-        "repro_torch.train.state"} <= set(names)
+        "repro_torch.train.state", "repro_torch.train.loop",
+        "repro_torch.launch.train"} <= set(names)
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -109,6 +111,11 @@ ck.wait()
 assert latest_step(d) == 2
 back = restore_checkpoint(d, 2, state, device="cpu")
 assert torch.equal(back.params["embed"]["tok"], state.params["embed"]["tok"])
+from repro_torch.train import train
+res = train(reduced(get_config("qwen2-0.5b")), steps=2, global_batch=2,
+            seq_len=8, ckpt_dir=tempfile.mkdtemp(), log_fn=lambda s: None,
+            device="cpu")
+assert len(res["losses"]) == 2 and int(res["state"].step) == 2
 loaded = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
@@ -234,6 +241,9 @@ def _entry_points():
             lm, torch.Generator().manual_seed(0)),
         "restore_checkpoint": lambda: restore_checkpoint(
             "no-such-dir", 0, {}),
+        "train": lambda: train(lm, steps=1, global_batch=2, seq_len=8),
+        "launch.train.main": lambda: launch_train.main(
+            ["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"]),
     }
 
 
@@ -284,12 +294,23 @@ def test_host_side_of_training_keeps_the_references_signatures():
     """The entry points that touch no device keep the reference's
     signatures (``restore_checkpoint`` takes ``device=`` in place of the
     reference's ``shardings=``; ``make_train_state`` a torch generator in
-    place of the jax key, and ``device=``)."""
+    place of the jax key, and ``device=``); ``train`` takes the
+    reference's and ``device=`` after them."""
     import inspect
     import repro.checkpoint as ref_ckpt
     import repro.data as ref_data
+    import repro.train.loop as ref_loop
     import repro_torch.checkpoint as port_ckpt
     import repro_torch.data as port_data
+
+    port_train = inspect.signature(train)
+    device = port_train.parameters["device"]
+    assert (device.kind, device.default) == (inspect.Parameter.KEYWORD_ONLY,
+                                             "cuda")
+    assert list(port_train.parameters)[-1] == "device"
+    assert str(port_train.replace(parameters=[
+        p for name, p in port_train.parameters.items()
+        if name != "device"])) == str(inspect.signature(ref_loop.train))
 
     def surface(ckpt, data):
         return [(fn.__qualname__, str(inspect.signature(fn))) for fn in (

@@ -261,6 +261,22 @@ after:
     step fed the next step's batch) must each break the gates
     ``LOOP_FAULTS`` lists and no other.  The runs' step times, how long
     each checkpoint save held the loop and the restores are printed.
+  * The dry-run's mesh-free inputs (``models.api``), every kernel's
+    launch count held at 0: A1 ``abstract_params``, ``abstract_state``,
+    ``abstract_cache`` and ``input_specs`` of all ten archs at full width
+    and every applicable shape (32 cells; qwen3-moe-235b-a22b's 940 GB of
+    parameters among them) allocate nothing on the card (its peak
+    allocation does not rise) and hold only meta tensors, each cell's
+    logical bytes printed; A2 a real ``make_train_state`` of qwen2-0.5b
+    and its ``init_cache`` at prefill_32k (~12.9 GB) on the card have the
+    abstract trees' keys, shapes and dtypes leaf for leaf; A3
+    ``make_batch`` on the card for every arch at prefill_32k and
+    qwen2-0.5b at its three shapes has ``input_specs``' shapes and
+    dtypes, tokens in range and a float std within 5% of its scale, and
+    equals the host CPU's batch bit for bit.  Three faults planted in
+    ``models.api`` (the parameters drawn on the card and moved to meta,
+    one leaf cast to bfloat16, the batch drawn on a CUDA generator) must
+    each break the gate ``API_FAULTS`` lists and no other.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -1183,6 +1199,19 @@ LOOP_LINE = re.compile(r"\[train\] step +(\d+) loss (\S+) \((\d+) ms"
                        r"( STRAGGLER)?\)$")
 LOOP_DONE = re.compile(r"\[train\] done: loss (\S+) -> (\S+) \(median step "
                        r"(\d+) ms\)$")
+# The dry-run's abstract trees (``models.api``): A1 every arch at every
+# applicable shape; A2 API_ARCH's real state and its cache at
+# API_CACHE_SHAPE; A3 ``make_batch`` for every arch at API_CACHE_SHAPE and
+# API_ARCH at each of its shapes, its float inputs' std within API_STD_TOL
+# of API_SCALE (millions of draws a batch: the std's own spread is ~1e-3)
+API_ARCH, API_CACHE_SHAPE = "qwen2-0.5b", "prefill_32k"
+API_SCALE, API_STD_TOL = 0.02, 0.05
+# faults planted in the code under test, each with the gate it must break
+# (the others must pass in that run), run on API_ARCH's cells alone: the
+# parameters drawn on the card and then moved to meta; one parameter leaf
+# cast to bfloat16; the card's batch drawn on a CUDA generator
+API_FAULTS = {"params_built_on_card": ("A1",), "leaf_cast_bf16": ("A2",),
+              "batch_on_card_generator": ("A3",)}
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -5622,6 +5651,261 @@ def train_loop_phase(dev):
             for k in ("flash_attention_fwd", "ssd_scan")}
 
 
+def tree_desc(tree):
+    """{key: (shape, dtype)} of a tree's leaves; a Python int leaf (the
+    real cache's ``len``) reads as a 0-d int32, the abstract cache's."""
+    return {key: ((), torch.int32) if isinstance(leaf, int)
+            else (tuple(leaf.shape), leaf.dtype)
+            for key, leaf in keyed(tree).items()}
+
+
+def tree_bytes(tree) -> int:
+    """The bytes a tree's tensor leaves would hold (meta ones included)."""
+    return sum(t.numel() * t.element_size() for t in keyed(tree).values()
+               if isinstance(t, torch.Tensor))
+
+
+@contextlib.contextmanager
+def device_rise(dev):
+    """{"bytes": the device's peak allocation inside the block above what
+    was allocated when it began}, filled when the block ends."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    yield out
+    torch.cuda.synchronize(dev)
+    out["bytes"] = torch.cuda.max_memory_allocated(dev) - base
+
+
+@contextlib.contextmanager
+def api_fault(fault, dev):
+    """A fault in ``models.api`` (``API_FAULTS``): the parameters drawn on
+    ``dev`` by ``Model.init`` and then moved to meta; the final norm's
+    scale cast to bfloat16; ``make_batch`` for ``dev`` drawn on a
+    generator of ``dev`` seeded as the default CPU one is."""
+    from repro_torch.models import api, build_model
+    if fault == "params_built_on_card":
+        def on_card(cfg):
+            return _to(build_model(cfg, device=dev).init(
+                torch.Generator(dev).manual_seed(0)), "meta")
+        with swapped(api, "abstract_params", on_card):
+            yield
+    elif fault == "leaf_cast_bf16":
+        real = api.abstract_params
+
+        def cast(cfg):
+            params = real(cfg)
+            norm = params["final_norm"]
+            norm["scale"] = norm["scale"].to(torch.bfloat16)
+            return params
+        with swapped(api, "abstract_params", cast):
+            yield
+    elif fault == "batch_on_card_generator":
+        real = api.make_batch
+
+        def on_card(cfg, shape, generator=None, scale=0.02, *, device):
+            if generator is None and torch.device(device).type == "cuda":
+                generator = torch.Generator(device).manual_seed(0)
+            return real(cfg, shape, generator, scale, device=device)
+        with swapped(api, "make_batch", on_card):
+            yield
+    else:
+        yield
+
+
+def api_abstract_gate(dev, cells):
+    """A1: every abstract tree of every cell (``abstract_params`` and
+    ``abstract_state`` once an arch, ``abstract_cache`` and
+    ``input_specs`` a cell) allocates nothing on ``dev`` and has only
+    meta leaves.  Returns (why or None, each cell's logical bytes, the
+    device's rise in bytes, the wall in s)."""
+    from repro_torch.models import api
+    rows, not_meta, states = [], [], {}
+    t0 = time.perf_counter()
+    with device_rise(dev) as rise:
+        for cfg, shape in cells:
+            if cfg.name not in states:
+                states[cfg.name] = api.abstract_state(cfg)
+            state = states[cfg.name]
+            trees = {"params": state.params, "state": state,
+                     "cache": api.abstract_cache(cfg, shape),
+                     "inputs": api.input_specs(cfg, shape)}
+            for name, tree in trees.items():
+                not_meta += [f"{cfg.name} {shape.name} {name}/{key}"
+                             for key, leaf in keyed(tree).items()
+                             if not (isinstance(leaf, torch.Tensor)
+                                     and leaf.is_meta)]
+            rows.append((cfg.name, shape.name,
+                         {k: tree_bytes(t) for k, t in trees.items()}))
+    wall = time.perf_counter() - t0
+    why = []
+    if rise["bytes"] > 0:
+        why.append(f"the device's peak rose by {rise['bytes']} bytes")
+    if not_meta:
+        why.append(f"{len(not_meta)} leaves not meta: {not_meta[:4]}")
+    return "; ".join(why) or None, rows, rise["bytes"], wall
+
+
+def api_real_trees(dev, cfg, shape):
+    """The real trees A2 holds the abstract ones to, built on ``dev``:
+    ``make_train_state`` (drawn on a generator of ``dev``) and
+    ``init_cache`` at ``shape``.  Returns them ("trees") with their
+    descriptions and bytes."""
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_state
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    cache = build_model(cfg, device=dev).init_cache(
+        shape.global_batch, shape.seq_len, enc_len=cfg.encoder_seq or 0)
+    check(isinstance(cache["len"], int), "init_cache's len is not an int")
+    return {"trees": (state, cache), "state": tree_desc(state),
+            "cache": tree_desc(cache), "state_bytes": tree_bytes(state),
+            "cache_bytes": tree_bytes(cache)}
+
+
+def api_real_gate(cfg, shape, real):
+    """A2: ``abstract_state`` and ``abstract_cache`` have the real trees'
+    keys, shapes and dtypes, leaf for leaf.  Returns why or None."""
+    from repro_torch.models import api
+    got = {"state": tree_desc(api.abstract_state(cfg)),
+           "cache": tree_desc(api.abstract_cache(cfg, shape))}
+    bad = [f"{name}/{key}" for name in got
+           for key in sorted(set(got[name]) | set(real[name]))
+           if got[name].get(key) != real[name].get(key)]
+    return f"{len(bad)} leaves differ: {bad[:4]}" if bad else None
+
+
+def api_batch_gate(dev, cells):
+    """A3 on each cell: ``make_batch`` on ``dev`` (the default generator)
+    has ``input_specs``' keys, shapes and dtypes (gate 1), tokens in
+    ``[0, vocab_size)`` and float inputs with a std within API_STD_TOL of
+    API_SCALE (gate 2), and equals the host CPU's ``make_batch`` bit for
+    bit (gate 3).  Returns (why or None, each cell's readings)."""
+    from repro_torch.models import api
+    why, rows = [], []
+    for cfg, shape in cells:
+        t0 = time.perf_counter()
+        batch = api.make_batch(cfg, shape, scale=API_SCALE, device=dev)
+        host = api.make_batch(cfg, shape, scale=API_SCALE, device="cpu")
+        specs = api.input_specs(cfg, shape)
+        where = f"{cfg.name} {shape.name}"
+        if {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} != \
+                {k: (tuple(v.shape), v.dtype) for k, v in specs.items()}:
+            why.append(f"{where}: shapes or dtypes are not input_specs'")
+        reads = {}
+        for key, t in batch.items():
+            if t.dtype.is_floating_point:
+                reads[key] = float(t.std()) / API_SCALE - 1.0
+                if abs(reads[key]) > API_STD_TOL:
+                    why.append(f"{where} {key}: std off scale by "
+                               f"{reads[key]:.3e}")
+            else:
+                lo, hi = int(t.min()), int(t.max())
+                reads[key] = (lo, hi)
+                if lo < 0 or hi >= cfg.vocab_size:
+                    why.append(f"{where} {key}: tokens in [{lo}, {hi}]")
+            if t.device.type != dev.type or \
+                    not torch.equal(bits(t), bits(host[key].to(t.device))):
+                why.append(f"{where} {key}: not the host's batch bit for bit")
+        rows.append((where, tree_bytes(batch), reads,
+                     time.perf_counter() - t0))
+        del batch, host
+    return "; ".join(why) or None, rows
+
+
+def api_checks(dev, cells, real, batch_cells, faults=tuple(API_FAULTS)):
+    """The dry-run's abstract trees on ``dev``: A1 over ``cells`` ((cfg,
+    shape) pairs), A2 on ``real`` (cfg, shape), A3 on ``batch_cells``;
+    every gate must pass.  Then A1-A3 on the cells of ``real``'s config
+    alone, clean and under each fault of ``faults``: the clean run must
+    pass every gate, and each fault break the gate ``API_FAULTS`` lists
+    for it and no other.  The real trees stay allocated to the end, so
+    every later peak reading includes them.  Returns the clean run's
+    readings (on a card, "peak_gib": the peak allocation over A2 and A3)."""
+    cfg, shape = real
+    real_trees = api_real_trees(dev, cfg, shape)
+    gates, out = {}, {}
+    gates["A1"], rows, out["rise"], out["a1_s"] = api_abstract_gate(dev,
+                                                                    cells)
+    for arch, sname, nbytes in rows:
+        print(f"api A1 {arch} {sname}: logical bytes " + ", ".join(
+            f"{k} {v:,}" for k, v in nbytes.items()), flush=True)
+    print(f"api A1 {len(cells)} cells: device rise {out['rise']} bytes, "
+          f"every leaf meta: {gates['A1'] or 'yes'}; {out['a1_s']:.4f} s",
+          flush=True)
+    gates["A2"] = api_real_gate(cfg, shape, real_trees)
+    print(f"api A2 {cfg.name}: real make_train_state "
+          f"({len(real_trees['state'])} leaves, "
+          f"{real_trees['state_bytes']:,} bytes) and init_cache at "
+          f"{shape.name} ({len(real_trees['cache'])} leaves, "
+          f"{real_trees['cache_bytes']:,} bytes) against abstract_state and "
+          f"abstract_cache: {gates['A2'] or 'every leaf equal'}", flush=True)
+    t0 = time.perf_counter()
+    gates["A3"], rows = api_batch_gate(dev, batch_cells)
+    out["a3_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    for where, nbytes, reads, secs in rows:
+        print(f"api A3 {where}: {nbytes:,} bytes, {reads} (std / scale - 1; "
+              f"token range), {secs:.3f} s", flush=True)
+    print(f"api A3 {len(batch_cells)} batches: "
+          f"{gates['A3'] or 'specs, ranges and host bits equal'}; "
+          f"{out['a3_s']:.3f} s", flush=True)
+    failed = {g: why for g, why in gates.items() if why}
+    check(not failed, f"api: gates failed: {failed}")
+    own = [(c, s) for c, s in cells if c == cfg]
+    for fault in (None,) + tuple(faults):
+        t0 = time.perf_counter()
+        with api_fault(fault, dev):
+            got = {"A1": api_abstract_gate(dev, own)[0],
+                   "A2": api_real_gate(cfg, shape, real_trees),
+                   "A3": api_batch_gate(dev, own)[0]}
+        broken = sorted(g for g, why in got.items() if why)
+        want = sorted(API_FAULTS.get(fault, ()))
+        print(f"api {cfg.name} planted fault {fault}: broke {broken} "
+              f"(must break {want}); {got}; {time.perf_counter() - t0:.3f} "
+              "s", flush=True)
+        check(broken == want, f"api: planted fault {fault} broke {broken}, "
+                              f"not {want}")
+    return out
+
+
+def api_phase(dev):
+    """(p) the dry-run's mesh-free inputs: ``api_checks`` on every arch at
+    full width, every kernel's launch count held at 0 over the phase (the
+    abstract trees run none).  A1 every arch at every applicable shape (32
+    cells), A2 ``API_ARCH`` at ``API_CACHE_SHAPE``, A3 every arch at
+    ``API_CACHE_SHAPE`` and ``API_ARCH`` at each of its shapes.  Returns
+    the launches by path (0 each)."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, shape_applicable
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    cells = [(get_config(a), shape) for a in sorted(ARCHS)
+             for shape in SHAPES.values()
+             if shape_applicable(get_config(a), shape)]
+    out = api_checks(
+        dev, cells, (get_config(API_ARCH), SHAPES[API_CACHE_SHAPE]),
+        [(c, s) for c, s in cells if s.name == API_CACHE_SHAPE]
+        + [(c, s) for c, s in cells
+           if c.name == API_ARCH and s.name != API_CACHE_SHAPE])
+    torch.cuda.synchronize(dev)
+    launches = {k.__name__: k.launches for k in counted}
+    print(f"api: A1 {out['a1_s']:.4f} s, A3 {out['a3_s']:.3f} s; phase wall "
+          f"{time.perf_counter() - t0:.3f} s; peak device memory over A2 "
+          f"and A3 {out['peak_gib']:.2f} GiB; kernel launches {launches}; "
+          f"card {card_line()}", flush=True)
+    check(not any(launches.values()),
+          f"api: a kernel was launched on the abstract trees' path "
+          f"{launches}")
+    return {(k, "api"): 0 for k in ("flash_attention_fwd", "ssd_scan")}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -5819,10 +6103,11 @@ def main() -> int:
     # then the data pipeline and a full-width qwen2-0.5b checkpoint round
     # trip (flash in each of its three losses); then a full-width
     # qwen2-0.5b training step against the host CPU's (no kernel); then
-    # the training loop at full width, resumed, and its launcher (no kernel)
+    # the training loop at full width, resumed, and its launcher (no kernel);
+    # then the dry-run's abstract trees and batches (no kernel)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
                   hybrid_phase, encdec_phase, launch_phase, ckpt_phase,
-                  train_phase, train_loop_phase):
+                  train_phase, train_loop_phase, api_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

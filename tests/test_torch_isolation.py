@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.core import fit_fastsim_params, whatif_grid
 from repro_torch.core.apps.hpl import HPLConfig
 from repro_torch.core.fastsim import (simulate_hpl_fast, simulate_time_traced,
@@ -20,6 +20,7 @@ from repro_torch.core.fastsim import (simulate_hpl_fast, simulate_time_traced,
 from repro_torch.convert import (fastsim_params_from_numpy,
                                  lm_params_from_reference)
 from repro_torch.models import build_model
+from repro_torch.models.api import make_batch
 from repro_torch.serve import (HPLPredictionService, PredictionService,
                                ServeEngine, predict_top500, warm)
 from repro_torch.campaign import CampaignSpec, run_campaign
@@ -51,7 +52,9 @@ assert {"repro_torch.launch", "repro_torch.launch.serve",
         "repro_torch.data", "repro_torch.data.pipeline",
         "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
         "repro_torch.train.state", "repro_torch.train.loop",
-        "repro_torch.launch.train"} <= set(names)
+        "repro_torch.launch.train", "repro_torch.roofline",
+        "repro_torch.roofline.analysis", "repro_torch.roofline.hlo_parse",
+        "repro_torch.models.api"} <= set(names)
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -97,7 +100,7 @@ assert simulate_fault_impact("hpl", "bdw-local", FaultSpec.straggler(rank=0),
                              device="cpu")["blowup"] > 1
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint, save_checkpoint)
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.train import make_train_state
 tokens = SyntheticLM(DataConfig(512, 16, 4)).global_batch_at(0)
@@ -244,6 +247,7 @@ def _entry_points():
         "train": lambda: train(lm, steps=1, global_batch=2, seq_len=8),
         "launch.train.main": lambda: launch_train.main(
             ["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"]),
+        "make_batch": lambda: make_batch(lm, SMOKE_SHAPE),
     }
 
 
@@ -257,6 +261,7 @@ def _lm_tree(cfg):
     return zeros(param_layout(cfg))
 
 
+SMOKE_SHAPE = ShapeConfig("smoke", "prefill", 64, 2)
 LM_ARCHS = {"": "qwen2-0.5b", "_ssm": "mamba2-780m",
             "_moe": "phi3.5-moe-42b-a6.6b", "_vlm": "llava-next-mistral-7b",
             "_hybrid": "zamba2-2.7b", "_encdec": "whisper-medium"}
@@ -269,7 +274,8 @@ LM_ARCHS = {"": "qwen2-0.5b", "_ssm": "mamba2-780m",
     "build_model_vlm", "ServeEngine_vlm", "lm_params_from_reference_vlm",
     "build_model_hybrid", "ServeEngine_hybrid",
     "lm_params_from_reference_hybrid", "build_model_encdec",
-    "ServeEngine_encdec", "lm_params_from_reference_encdec"])
+    "ServeEngine_encdec", "lm_params_from_reference_encdec", "make_batch",
+    "make_batch_vlm", "make_batch_encdec"])
 def test_lm_entry_points_run_on_the_cpu_when_asked(name):
     suffix = next(s for s in ("_ssm", "_moe", "_vlm", "_hybrid", "_encdec",
                               "")
@@ -279,7 +285,9 @@ def test_lm_entry_points_run_on_the_cpu_when_asked(name):
     call = {"build_model": lambda: build_model(lm, device="cpu"),
             "ServeEngine": lambda: ServeEngine(lm, {}, device="cpu"),
             "lm_params_from_reference": lambda: lm_params_from_reference(
-                _lm_tree(lm), lm, device="cpu")}[base]
+                _lm_tree(lm), lm, device="cpu"),
+            "make_batch": lambda: make_batch(lm, SMOKE_SHAPE,
+                                             device="cpu")}[base]
     assert call() is not None
 
 

@@ -277,6 +277,20 @@ after:
     ``models.api`` (the parameters drawn on the card and moved to meta,
     one leaf cast to bfloat16, the batch drawn on a CUDA generator) must
     each break the gate ``API_FAULTS`` lists and no other.
+  * The sharding rules and the logical spec trees (``repro_torch.sharding``,
+    ``launch.mesh``, ``Model.param_specs`` / ``cache_specs``,
+    ``state_specs``), every kernel's launch count held at 0: S1 the
+    persistent bytes per device of all 32 cells on the 16x16 and 2x16x16
+    production meshes, from the abstract trees, equal to the reference's
+    (``REFERENCE_SHARDED_BYTES``), with no rise of the card's peak
+    allocation; S2 qwen2-0.5b's real train state (5.93 GB) and its
+    parameters in bfloat16 with the real prefill_32k cache (12.9 GB) cut
+    on the card into every device's block on both meshes: each block has
+    ``shard_shape``'s shape, each device's blocks sum to S1's figure, and
+    a coverage counter raised by one over every block equals everywhere
+    the product of the mesh axes the leaf's spec leaves unused.  Three
+    faults planted in the rules, the resolution and a spec tree must each
+    break the gates ``SHARDING_FAULTS`` lists and no other.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -290,6 +304,7 @@ import contextlib
 import dataclasses
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
@@ -1212,6 +1227,94 @@ API_SCALE, API_STD_TOL = 0.02, 0.05
 # cast to bfloat16; the card's batch drawn on a CUDA generator
 API_FAULTS = {"params_built_on_card": ("A1",), "leaf_cast_bf16": ("A2",),
               "batch_on_card_generator": ("A3",)}
+# The sharding rules and spec trees (``repro_torch.sharding``): S1 the
+# persistent bytes per device of every (arch, shape) cell on both
+# production meshes, from the abstract trees, against the reference's
+# (REFERENCE_SHARDED_BYTES); S2 SHARDING_ARCH's real train state (for
+# SHARDING_TRAIN_SHAPE), and its parameters in bfloat16 with its cache at
+# API_CACHE_SHAPE, cut on the card into every device's block on both meshes
+SHARDING_ARCH, SHARDING_TRAIN_SHAPE = API_ARCH, "train_4k"
+SHARDING_MESHES = {"16x16": False, "2x16x16": True}
+# faults planted in the code under test, each with the gates it must break
+# (the others must pass in that run): the rule choice reads every "sp"
+# arch as "tp" (``scheme_for``); ``resolve`` keeps a mesh axis that an
+# earlier dim of the spec already took; Adafactor's column means take the
+# row means' spec (``opt_state_specs``, reached through ``state_specs``;
+# only qwen3-moe-235b-a22b trains with Adafactor, so S2 cannot see it)
+SHARDING_FAULTS = {"scheme_sp_read_as_tp": ("S1", "S2"),
+                   "resolve_keeps_duplicate_axes": ("S1", "S2"),
+                   "adafactor_vc_from_row_dims": ("S1",)}
+# Persistent bytes per device of each "arch__shape__mesh" cell: the
+# reference's ``sharded_bytes`` as ``repro.launch.dryrun.run_cell``
+# computes it (the train state; else the parameters in bfloat16 plus the
+# cache), from its ``tree_shardings`` on ``make_production_mesh`` over 512
+# forced host devices; tests/test_torch_chip_constants.py recomputes it.
+REFERENCE_SHARDED_BYTES = {
+    "granite-34b__train_4k__16x16": 2_325_159_944,
+    "granite-34b__train_4k__2x16x16": 2_325_159_944,
+    "granite-34b__prefill_32k__16x16": 6_352_351_236,
+    "granite-34b__prefill_32k__2x16x16": 6_260_076_548,
+    "granite-34b__decode_32k__16x16": 6_905_999_364,
+    "granite-34b__decode_32k__2x16x16": 6_536_900_612,
+    "llava-next-mistral-7b__train_4k__16x16": 342_638_600,
+    "llava-next-mistral-7b__train_4k__2x16x16": 342_638_600,
+    "llava-next-mistral-7b__prefill_32k__16x16": 1_442_586_628,
+    "llava-next-mistral-7b__prefill_32k__2x16x16": 1_174_151_172,
+    "llava-next-mistral-7b__decode_32k__16x16": 3_053_199_364,
+    "llava-next-mistral-7b__decode_32k__2x16x16": 1_979_457_540,
+    "mamba2-780m__train_4k__16x16": 59_968_520,
+    "mamba2-780m__train_4k__2x16x16": 59_968_520,
+    "mamba2-780m__prefill_32k__16x16": 163_072_516,
+    "mamba2-780m__prefill_32k__2x16x16": 156_436_996,
+    "mamba2-780m__decode_32k__16x16": 202_885_636,
+    "mamba2-780m__decode_32k__2x16x16": 176_343_556,
+    "mamba2-780m__long_500k__16x16": 156_436_996,
+    "mamba2-780m__long_500k__2x16x16": 156_436_996,
+    "minitron-8b__train_4k__16x16": 466_403_336,
+    "minitron-8b__train_4k__2x16x16": 466_403_336,
+    "minitron-8b__prefill_32k__16x16": 1_772_625_924,
+    "minitron-8b__prefill_32k__2x16x16": 1_504_190_468,
+    "minitron-8b__decode_32k__16x16": 3_383_238_660,
+    "minitron-8b__decode_32k__2x16x16": 2_309_496_836,
+    "phi3.5-moe-42b-a6.6b__train_4k__16x16": 1_994_293_256,
+    "phi3.5-moe-42b-a6.6b__train_4k__2x16x16": 1_994_293_256,
+    "phi3.5-moe-42b-a6.6b__prefill_32k__16x16": 5_776_097_284,
+    "phi3.5-moe-42b-a6.6b__prefill_32k__2x16x16": 5_507_661_828,
+    "phi3.5-moe-42b-a6.6b__decode_32k__16x16": 7_386_710_020,
+    "phi3.5-moe-42b-a6.6b__decode_32k__2x16x16": 6_312_968_196,
+    "qwen2-0.5b__train_4k__16x16": 275_615_240,
+    "qwen2-0.5b__train_4k__2x16x16": 275_615_240,
+    "qwen2-0.5b__prefill_32k__16x16": 112_234_244,
+    "qwen2-0.5b__prefill_32k__2x16x16": 87_068_420,
+    "qwen2-0.5b__decode_32k__16x16": 263_229_188,
+    "qwen2-0.5b__decode_32k__2x16x16": 162_565_892,
+    "qwen3-moe-235b-a22b__train_4k__16x16": 4_058_750_968,
+    "qwen3-moe-235b-a22b__train_4k__2x16x16": 4_058_750_968,
+    "qwen3-moe-235b-a22b__prefill_32k__16x16": 31_008_464_900,
+    "qwen3-moe-235b-a22b__prefill_32k__2x16x16": 30_614_200_324,
+    "qwen3-moe-235b-a22b__decode_32k__16x16": 33_374_052_356,
+    "qwen3-moe-235b-a22b__decode_32k__2x16x16": 31_796_994_052,
+    "stablelm-3b__train_4k__16x16": 135_045_128,
+    "stablelm-3b__train_4k__2x16x16": 135_045_128,
+    "stablelm-3b__prefill_32k__16x16": 1_692_313_604,
+    "stablelm-3b__prefill_32k__2x16x16": 1_021_224_964,
+    "stablelm-3b__decode_32k__16x16": 5_718_845_444,
+    "stablelm-3b__decode_32k__2x16x16": 3_034_490_884,
+    "whisper-medium__train_4k__16x16": 41_017_352,
+    "whisper-medium__train_4k__2x16x16": 41_017_352,
+    "whisper-medium__prefill_32k__16x16": 799_449_092,
+    "whisper-medium__prefill_32k__2x16x16": 450_666_500,
+    "whisper-medium__decode_32k__16x16": 2_892_144_644,
+    "whisper-medium__decode_32k__2x16x16": 1_497_014_276,
+    "zamba2-2.7b__train_4k__16x16": 140_369_288,
+    "zamba2-2.7b__train_4k__2x16x16": 140_369_288,
+    "zamba2-2.7b__prefill_32k__16x16": 750_764_612,
+    "zamba2-2.7b__prefill_32k__2x16x16": 554_196_548,
+    "zamba2-2.7b__decode_32k__16x16": 1_930_172_996,
+    "zamba2-2.7b__decode_32k__2x16x16": 1_143_900_740,
+    "zamba2-2.7b__long_500k__16x16": 3_385_351_748,
+    "zamba2-2.7b__long_500k__2x16x16": 3_385_351_748,
+}
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -5906,6 +6009,314 @@ def api_phase(dev):
     return {(k, "api"): 0 for k in ("flash_attention_fwd", "ssd_scan")}
 
 
+def sharding_key(cfg, shape, mesh_name) -> str:
+    return f"{cfg.name}__{shape.name}__{mesh_name}"
+
+
+def bf16_floats(tree):
+    """The dry-run's ``bf16_params``: every floating leaf in bfloat16."""
+    from repro_torch._tree import map_with_keys
+    return map_with_keys(lambda _, t: t.to(torch.bfloat16)
+                         if t.dtype.is_floating_point else t, tree)
+
+
+def cell_layout(cfg, shape, multi_pod, trees):
+    """What the dry-run lays out for a cell, as ``run_cell`` does: the
+    production mesh and [(tree, its legalized specs)], the tree taken from
+    ``trees``: the train state for a train cell, else the parameters (in
+    bfloat16) and the cache."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import make_rules, tree_shardings
+    from repro_torch.train.step import state_specs
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    train = shape.kind == "train"
+    rules = make_rules(cfg, multi_pod=multi_pod,
+                       mode="train" if train else "serve",
+                       global_batch=shape.global_batch)
+    model = build_model(cfg, device="meta")
+    pairs = ([(trees["state"], state_specs(cfg, model))] if train else
+             [(trees["params"], model.param_specs()),
+              (trees["cache"], model.cache_specs())])
+    return mesh, [(tree, tree_shardings(spec, mesh, rules, tree))
+                  for tree, spec in pairs]
+
+
+def abstract_cell_trees(cfg, shape):
+    """S1's trees for a cell: ``abstract_state``, or ``abstract_params``
+    in bfloat16 and ``abstract_cache``."""
+    from repro_torch.models import api
+    if shape.kind == "train":
+        return {"state": api.abstract_state(cfg)}
+    return {"params": bf16_floats(api.abstract_params(cfg)),
+            "cache": api.abstract_cache(cfg, shape)}
+
+
+def sharding_bytes_gate(dev, cells, want):
+    """S1: every cell of ``cells`` ((cfg, shape) pairs) on both production
+    meshes, from the abstract trees: ``sharded_bytes`` of its layout must
+    equal ``want``'s figure, and the device's peak allocation must not
+    rise.  Returns (why or None, [(key, bytes, wanted)], the rise in
+    bytes, the wall in s)."""
+    from repro_torch.sharding import sharded_bytes
+    rows, bad = [], []
+    t0 = time.perf_counter()
+    with device_rise(dev) as rise:
+        for cfg, shape in cells:
+            trees = abstract_cell_trees(cfg, shape)
+            for mesh_name, multi_pod in SHARDING_MESHES.items():
+                key = sharding_key(cfg, shape, mesh_name)
+                try:
+                    mesh, laid = cell_layout(cfg, shape, multi_pod, trees)
+                    got = sum(sharded_bytes(tree, specs, mesh)
+                              for tree, specs in laid)
+                except ValueError as exc:
+                    got = f"ValueError: {exc}"
+                rows.append((key, got, want.get(key)))
+                if got != want.get(key):
+                    bad.append(key)
+    wall = time.perf_counter() - t0
+    why = []
+    if rise["bytes"] > 0:
+        why.append(f"the device's peak rose by {rise['bytes']} bytes")
+    if bad:
+        why.append(f"{len(bad)} of {len(rows)} cells differ from the "
+                   f"reference: {bad[:4]}")
+    return "; ".join(why) or None, rows, rise["bytes"], wall
+
+
+def spec_axes(entry):
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def device_blocks(spec, shape, mesh):
+    """Each device's block of an array of ``shape`` laid out by ``spec``
+    on ``mesh``, as index tuples in device order (row-major over the mesh
+    axes): a dim split over axes (a1, a2, ...) falls into the product of
+    their sizes parts, a1 major, as jax lays out a ``NamedSharding``.
+    Computed here from the mesh coordinates, not by the port."""
+    out = []
+    for coords in itertools.product(*(range(n) for n in mesh.axis_sizes)):
+        at = dict(zip(mesh.axis_names, coords))
+        idx = []
+        for i, dim in enumerate(shape):
+            part, parts = 0, 1
+            for a in spec_axes(spec[i] if i < len(spec) else None):
+                part = part * mesh.shape[a] + at[a]
+                parts *= mesh.shape[a]
+            block = dim // parts
+            idx.append(slice(part * block, (part + 1) * block))
+        out.append(tuple(idx))
+    return out
+
+
+def cut_leaf(leaf, spec, mesh):
+    """Cut ``leaf`` into every device's block (views, no copy) and raise a
+    coverage counter of the leaf's shape, on the leaf's device, by one
+    over each block.  Returns (each device's block bytes, how many blocks
+    lack ``shard_shape``'s shape, whether the counter equals everywhere
+    the product of the mesh axes the spec leaves unused)."""
+    from repro_torch.sharding import shard_shape
+    shape = tuple(leaf.shape)
+    try:
+        want = shard_shape(spec, shape, mesh)
+    except ValueError:
+        want = None
+    counter = torch.zeros(shape, dtype=torch.int16, device=leaf.device)
+    nbytes, off = [], 0
+    for idx in device_blocks(spec, shape, mesh):
+        block = leaf[idx]
+        off += tuple(block.shape) != want
+        nbytes.append(block.numel() * block.element_size())
+        counter[idx] += 1
+    used = {a for entry in spec for a in spec_axes(entry)}
+    unused = math.prod(n for a, n in mesh.shape.items() if a not in used)
+    low, high = torch.aminmax(counter)  # no leaf-sized temporary
+    covered = int(low) == int(high) == unused
+    del counter
+    return nbytes, off, covered
+
+
+def sharding_cut_gate(cfg, shapes, real, want):
+    """S2: the real trees of ``real`` ({"state", "params" (bfloat16),
+    "cache"}) laid out for ``cfg`` at each shape of ``shapes`` on both
+    meshes and cut into every device's block (``cut_leaf``): every block
+    has ``shard_shape``'s shape, every device's blocks sum to ``want``'s
+    figure for the cell, and every leaf's coverage counter is even.
+    Returns (why or None, [(key, device 0's bytes, leaves, blocks,
+    s)])."""
+    from repro_torch.sharding import map_specs
+    why, rows = [], []
+    for shape in shapes:
+        for mesh_name, multi_pod in SHARDING_MESHES.items():
+            t0 = time.perf_counter()
+            key = sharding_key(cfg, shape, mesh_name)
+            mesh, laid = cell_layout(cfg, shape, multi_pod, real)
+            per_device = [0] * mesh.chips
+            off, uneven, n_leaves = 0, [], 0
+            for tree, specs in laid:
+                leaves, spec_list = keyed(tree), []
+                map_specs(spec_list.append, specs)
+                check(len(leaves) == len(spec_list),
+                      f"sharding S2 {key}: {len(leaves)} leaves for "
+                      f"{len(spec_list)} specs")
+                for (name, leaf), spec in zip(leaves.items(), spec_list):
+                    nbytes, bad, covered = cut_leaf(leaf, spec, mesh)
+                    per_device = [a + b for a, b in zip(per_device, nbytes)]
+                    off += bad
+                    if not covered:
+                        uneven.append(name)
+                    n_leaves += 1
+            if off:
+                why.append(f"{key}: {off} blocks lack shard_shape's shape")
+            wrong = sum(b != want.get(key) for b in per_device)
+            if wrong:
+                why.append(f"{key}: {wrong} devices hold other than "
+                           f"{want.get(key)} bytes (device 0: "
+                           f"{per_device[0]})")
+            if uneven:
+                why.append(f"{key}: uneven coverage of {uneven[:4]}")
+            rows.append((key, per_device[0], n_leaves,
+                         n_leaves * mesh.chips, time.perf_counter() - t0))
+    return "; ".join(why) or None, rows
+
+
+@contextlib.contextmanager
+def sharding_fault(fault):
+    """A fault in the sharding rules or the spec trees
+    (``SHARDING_FAULTS``)."""
+    from repro_torch.sharding import map_specs, specs
+    from repro_torch.train import step
+    if fault == "scheme_sp_read_as_tp":
+        real = specs.scheme_for
+
+        def scheme_for(cfg, tp_size):
+            got = real(cfg, tp_size)
+            return "tp" if got == "sp" else got
+        with swapped(specs, "scheme_for", scheme_for):
+            yield
+    elif fault == "resolve_keeps_duplicate_axes":
+        def resolve(logical, rules):
+            if logical is None:
+                return ()
+            out = []
+            for name in logical:
+                axes = tuple(rules.get(name, ())) if name is not None else ()
+                out.append(None if not axes else
+                           axes[0] if len(axes) == 1 else axes)
+            return tuple(out)
+        with swapped(specs, "resolve", resolve):
+            yield
+    elif fault == "adafactor_vc_from_row_dims":
+        real = step.opt_state_specs
+
+        def opt_state_specs(name, param_specs):
+            if name != "adafactor":
+                return real(name, param_specs)
+
+            def one(spec):
+                if len(spec) >= 2:
+                    return {"vr": spec[:-1], "vc": spec[:-1]}
+                return {"v": spec}
+            return {"f": map_specs(one, param_specs), "count": None}
+        with swapped(step, "opt_state_specs", opt_state_specs):
+            yield
+    else:
+        yield
+
+
+def sharding_checks(dev, cells, want, real, faults=tuple(SHARDING_FAULTS)):
+    """The sharding rules and spec trees on ``dev``: S1 over ``cells``
+    against ``want`` ({"arch__shape__mesh": bytes}); S2 on ``real`` (cfg,
+    train shape, serve shape), its real trees built on ``dev`` as
+    ``api_real_trees`` builds them, the cache's ``len`` made the 0-d int32
+    ``abstract_cache`` has; every gate must pass.  Then S1 and S2 under
+    each fault of ``faults``: each must break the gates
+    ``SHARDING_FAULTS`` lists for it and no other.  Returns the clean
+    run's readings (on a card, "peak_gib": the peak allocation over
+    S2)."""
+    cfg, train_shape, serve_shape = real
+    state, cache = api_real_trees(dev, cfg, serve_shape)["trees"]
+    trees = {"state": state, "params": bf16_floats(state.params),
+             "cache": {**cache, "len": torch.tensor(
+                 cache["len"], dtype=torch.int32, device=dev)}}
+    shapes = (train_shape, serve_shape)
+    gates, out = {}, {}
+    gates["S1"], rows, out["rise"], out["s1_s"] = sharding_bytes_gate(
+        dev, cells, want)
+    for key, got, wanted in rows:
+        print(f"sharding S1 {key}: {got:,} bytes a device (reference "
+              f"{wanted:,})" if isinstance(got, int) else
+              f"sharding S1 {key}: {got} (reference {wanted})", flush=True)
+    print(f"sharding S1 {len(rows)} cells: device rise {out['rise']} bytes, "
+          f"{gates['S1'] or 'every cell equal to the reference'}; "
+          f"{out['s1_s']:.4f} s", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gates["S2"], rows = sharding_cut_gate(cfg, shapes, trees, want)
+    out["s2_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    for key, nbytes, n_leaves, blocks, secs in rows:
+        print(f"sharding S2 {key}: {n_leaves} leaves cut into {blocks:,} "
+              f"blocks, device 0 holds {nbytes:,} bytes; {secs:.3f} s",
+              flush=True)
+    print(f"sharding S2: {gates['S2'] or 'every block shard_shape, every '
+          'device the reference bytes, coverage even'}; {out['s2_s']:.3f} s",
+          flush=True)
+    failed = {g: why for g, why in gates.items() if why}
+    check(not failed, f"sharding: gates failed: {failed}")
+    for fault in faults:
+        t0 = time.perf_counter()
+        with sharding_fault(fault):
+            got = {"S1": sharding_bytes_gate(dev, cells, want)[0],
+                   "S2": sharding_cut_gate(cfg, shapes, trees, want)[0]}
+        broken = sorted(g for g, why in got.items() if why)
+        wanted = sorted(SHARDING_FAULTS[fault])
+        print(f"sharding {cfg.name} planted fault {fault}: broke {broken} "
+              f"(must break {wanted}); {got}; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        check(broken == wanted, f"sharding: planted fault {fault} broke "
+                                f"{broken}, not {wanted}")
+    return out
+
+
+def sharding_phase(dev):
+    """(q) the sharding rules and the logical spec trees:
+    ``sharding_checks`` with S1 over every arch at full width and every
+    applicable shape (32 cells x 2 meshes) against
+    REFERENCE_SHARDED_BYTES and S2 on SHARDING_ARCH's real trees, every
+    kernel's launch count held at 0 over the phase.  Returns the
+    launches by path (0 each)."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, shape_applicable
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    cells = [(get_config(a), shape) for a in sorted(ARCHS)
+             for shape in SHAPES.values()
+             if shape_applicable(get_config(a), shape)]
+    out = sharding_checks(
+        dev, cells, REFERENCE_SHARDED_BYTES,
+        (get_config(SHARDING_ARCH), SHAPES[SHARDING_TRAIN_SHAPE],
+         SHAPES[API_CACHE_SHAPE]))
+    torch.cuda.synchronize(dev)
+    launches = {k.__name__: k.launches for k in counted}
+    print(f"sharding: S1 {out['s1_s']:.4f} s, S2 {out['s2_s']:.3f} s; phase "
+          f"wall {time.perf_counter() - t0:.3f} s; peak device memory over "
+          f"S2 {out['peak_gib']:.2f} GiB; kernel launches {launches}; card "
+          f"{card_line()}", flush=True)
+    check(not any(launches.values()),
+          f"sharding: a kernel was launched on the sharding path {launches}")
+    return {(k, "sharding"): 0 for k in ("flash_attention_fwd", "ssd_scan")}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -6104,10 +6515,11 @@ def main() -> int:
     # trip (flash in each of its three losses); then a full-width
     # qwen2-0.5b training step against the host CPU's (no kernel); then
     # the training loop at full width, resumed, and its launcher (no kernel);
-    # then the dry-run's abstract trees and batches (no kernel)
+    # then the dry-run's abstract trees and batches (no kernel); then the
+    # sharding rules and spec trees, per-device bytes and blocks (no kernel)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
                   hybrid_phase, encdec_phase, launch_phase, ckpt_phase,
-                  train_phase, train_loop_phase, api_phase):
+                  train_phase, train_loop_phase, api_phase, sharding_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

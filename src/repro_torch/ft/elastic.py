@@ -7,10 +7,13 @@ The pieces that make this a plan rather than a prayer:
     re-shards with new shardings);
   * the data pipeline is a pure function of (step, dp_rank, dp_size)
     (``data/pipeline.py``), so the token stream continues exactly;
-  * sharding rules are derived from (cfg, mesh) (the reference's
-    ``sharding/specs.py``, not ported: one card has no mesh), not
-    hard-coded — a (8,16) degraded mesh yields a valid rule set.
-Here the plan itself is arithmetic on meshes and batches only.
+  * sharding rules are derived from (cfg, mesh) (``repro_torch.sharding``,
+    the reference's rules on plain tuples: ``make_rules(cfg, dp_size=8)``
+    plans a (8,16) degraded mesh), not hard-coded — a degraded mesh
+    yields a valid rule set.
+Here the plan itself is arithmetic on meshes and batches only; nothing
+re-shards, since the port runs on one device and the reference's
+``use_rules`` and ``constrain`` are not ported.
 
 ``restart_plan_for_faults`` closes the loop with the fault layer: a
 fail-stop ``FaultSpec`` (the same object the DES ran, or the operator's

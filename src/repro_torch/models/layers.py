@@ -9,8 +9,12 @@ config's dtype with float32 norms and softmax, as in the reference.
 
 Each ``init_*`` draws from an explicit ``torch.Generator`` (numbers differ
 from ``jax.random``'s; the tests hand both packages the same weights).
-The logical sharding specs (``spec_*``) are not ported: the port runs on
-one device.
+The logical sharding specs (``spec_norm``, ``spec_attention``,
+``spec_mlp``, ``spec_embed``) are the reference's, on plain tuples:
+``Model.param_specs`` assembles them and ``repro_torch.sharding`` resolves
+them onto a mesh for the dry-run's per-device bytes.  No layer applies
+them: the reference's ``constrain`` is the identity on one device, and
+the port runs on one.
 """
 from __future__ import annotations
 
@@ -102,6 +106,13 @@ def layout_norm(d: int, norm: str = "rms") -> Layout:
     return p
 
 
+def spec_norm(norm="rms"):
+    p = {"scale": (None,)}
+    if norm == "ln":
+        p["bias"] = (None,)
+    return p
+
+
 def init_norm(d: int, norm: str = "rms", *, generator: torch.Generator,
               device: torch.device) -> Params:
     return init_from_layout(layout_norm(d, norm), generator, device)
@@ -176,6 +187,20 @@ def layout_attention(cfg) -> Layout:
         p["bq"] = ((kv, r, hd), "zeros")
         p["bk"] = ((kv, hd), "zeros")
         p["bv"] = ((kv, hd), "zeros")
+    return p
+
+
+def spec_attention(cfg):
+    p = {
+        "wq": ("fsdp", "tp_kv", "tp_rep", None),
+        "wk": ("fsdp", "tp_kv", None),
+        "wv": ("fsdp", "tp_kv", None),
+        "wo": ("tp_kv", "tp_rep", None, "fsdp"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("tp_kv", "tp_rep", None)
+        p["bk"] = ("tp_kv", None)
+        p["bv"] = ("tp_kv", None)
     return p
 
 
@@ -360,6 +385,12 @@ def layout_mlp(cfg, d_ff: Optional[int] = None) -> Layout:
     return {"wi": ((d, f), "dense"), "wo": ((f, d), "dense")}
 
 
+def spec_mlp(cfg):
+    if cfg.act == "swiglu":
+        return {"wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
+    return {"wi": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
+
+
 def init_mlp(cfg, d_ff: Optional[int] = None, *,
              generator: torch.Generator, device: torch.device) -> Params:
     return init_from_layout(layout_mlp(cfg, d_ff), generator, device)
@@ -383,6 +414,13 @@ def layout_embed(cfg) -> Layout:
     p = {"tok": ((cfg.vocab_padded, cfg.d_model), "embed")}
     if not cfg.tie_embeddings:
         p["unembed"] = ((cfg.d_model, cfg.vocab_padded), "dense")
+    return p
+
+
+def spec_embed(cfg):
+    p = {"tok": ("vocab", "fsdp")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("fsdp", "vocab")
     return p
 
 

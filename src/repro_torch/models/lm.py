@@ -12,17 +12,20 @@ sinusoidal positions added to both inputs; every attention of the family
 is plain, as in the reference, whatever ``use_kernel`` says).
 Same methods as the reference, on nested dicts of tensors::
 
-  init(generator) -> params                 forward(params, batch) -> (logits, aux)
-  loss(params, batch) -> (loss, metrics)
+  init(generator) -> params                 param_specs() -> logical specs
+  forward(params, batch) -> (logits, aux)   loss(params, batch) -> (loss, metrics)
   init_cache(batch, max_len, enc_len=0) -> cache
+  cache_specs() -> logical specs
   prefill(params, batch, max_len) -> (cache, logits)
   decode(params, cache, tokens) -> (cache, logits)
 
 Layer parameters are stacked on a leading layer axis, as in the
 reference, so converting a reference tree is a copy; the layer stack is a
 Python loop over that axis (the reference's ``lax.scan``).  The
-reference's ``constrain`` (a sharding constraint) is the identity on one
-device and is left out.  Remat follows ``cfg.remat`` as in the reference
+logical spec trees (``param_specs``, ``cache_specs``) are the
+reference's, tuples of logical axis names that ``repro_torch.sharding``
+resolves onto a mesh; the reference's ``constrain`` (a sharding
+constraint) is the identity on one device and is left out.  Remat follows ``cfg.remat`` as in the reference
 (``remat``): each layer (the hybrid family: each group of ssm layers with
 its shared block; the encdec encoder's layers too) runs checkpointed when
 ``forward`` or ``loss`` records a graph, and plain otherwise.
@@ -41,6 +44,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import leaves
+from repro_torch.sharding.specs import map_specs
 
 from . import layers as L
 from . import mamba2 as M
@@ -151,6 +155,11 @@ def param_layout(cfg) -> L.Layout:
     return p
 
 
+def _stacked_specs(spec):
+    """Prepend a None (layer) dim to every leaf of a logical spec tree."""
+    return map_specs(lambda s: (None,) + s, spec)
+
+
 def decode_position_row(pos: int, d_model: int, device) -> torch.Tensor:
     """(1, d_model) float32: the encdec decode step's position row, row
     ``pos`` of the reference's ``DECODE_POSITIONS``-row sinusoidal table.
@@ -204,6 +213,46 @@ class Model(nn.Module):
             p[k] = L.init_from_layout(lay, generator, self.device,
                                       self.param_dtype, lead=lead)
         return p
+
+    def param_specs(self) -> Params:
+        """The logical spec of every parameter, the ``init`` tree's keys:
+        the reference's ``Model.param_specs``."""
+        cfg = self.cfg
+        sp: Params = {"embed": L.spec_embed(cfg),
+                      "final_norm": L.spec_norm(cfg.norm)}
+        if cfg.family in ("dense", "moe", "vlm"):
+            sp["layers"] = _stacked_specs(self._spec_layer(cfg))
+        elif cfg.family == "ssm":
+            sp["layers"] = _stacked_specs(self._spec_ssm_layer(cfg))
+        elif cfg.family == "hybrid":
+            sp["layers"] = _stacked_specs(self._spec_ssm_layer(cfg))
+            sp["shared"] = self._spec_layer(cfg)
+        elif cfg.family == "encdec":
+            sp["enc_layers"] = _stacked_specs(self._spec_layer(cfg))
+            sp["enc_norm"] = L.spec_norm(cfg.norm)
+            sp["layers"] = _stacked_specs(self._spec_decdec_layer(cfg))
+        return sp
+
+    @staticmethod
+    def _spec_layer(cfg) -> Params:
+        p = {"ln1": L.spec_norm(cfg.norm), "attn": L.spec_attention(cfg),
+             "ln2": L.spec_norm(cfg.norm)}
+        if cfg.moe is not None and cfg.family == "moe":
+            p["moe"] = MOE.spec_moe(cfg)
+        else:
+            p["mlp"] = L.spec_mlp(cfg)
+        return p
+
+    @staticmethod
+    def _spec_ssm_layer(cfg) -> Params:
+        return {"ln": L.spec_norm(cfg.norm), "ssm": M.spec_ssm(cfg)}
+
+    @staticmethod
+    def _spec_decdec_layer(cfg) -> Params:
+        return {"ln1": L.spec_norm(cfg.norm), "attn": L.spec_attention(cfg),
+                "lnx": L.spec_norm(cfg.norm),
+                "cross": L.spec_attention(cfg),
+                "ln2": L.spec_norm(cfg.norm), "mlp": L.spec_mlp(cfg)}
 
     def _plan(self, params: Params) -> List[Tuple[str, int, Params, bool]]:
         """The stack in run order: (kind "ssm", "dense" or "cross" (an
@@ -418,6 +467,27 @@ class Model(nn.Module):
             cache["cv"] = torch.zeros(shape, dtype=self.dtype,
                                       device=self.device)
         return cache
+
+    def cache_specs(self) -> Params:
+        """The logical spec of every cache leaf: the reference's
+        ``Model.cache_specs``.  ``"len"`` is ``None`` (replicated), which
+        pairs with ``api.abstract_cache``'s 0-d int32 ``len``, not with
+        ``init_cache``'s Python int."""
+        cfg = self.cfg
+        kv = (None, "dp", "kv_seq", "tp_kv", None)
+        c: Params = {"len": None}
+        if cfg.family in ("dense", "moe", "vlm", "encdec"):
+            c["k"] = kv
+            c["v"] = kv
+        if cfg.family == "encdec":
+            c["ck"] = kv
+            c["cv"] = kv
+        if cfg.family in ("ssm", "hybrid"):
+            c["ssm"] = _stacked_specs(M.spec_ssm_cache(cfg))
+        if cfg.family == "hybrid":
+            c["k"] = kv
+            c["v"] = kv
+        return c
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params: Params, batch, max_len: int):

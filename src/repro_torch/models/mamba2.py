@@ -14,8 +14,10 @@ decay tiles, ``C B^T`` and ``y_intra`` in the compute dtype, ``y_inter``
 and the state-update operands cast from float32 to it, the state itself
 float32.  ``_causal_conv`` stays the reference's shifted sum (no cuDNN,
 so no TF32 question).  ``ssd_chunked`` remats its chunk body when it
-records a graph, as the reference does.  Left out: the sharding specs
-(``spec_ssm``, ``spec_ssm_cache``).
+records a graph, as the reference does.  The sharding specs
+(``spec_ssm``, ``spec_ssm_cache``) are the reference's, on plain tuples,
+for ``Model.param_specs`` and ``Model.cache_specs``; nothing here applies
+them, since the port runs on one device.
 """
 from __future__ import annotations
 
@@ -61,6 +63,19 @@ def layout_ssm(cfg) -> Layout:
         "dt_bias": ((nh,), "dt_bias"),
         "norm_scale": ((din,), "ones"),
         "out": ((din, d), "dense"),
+    }
+
+
+def spec_ssm(cfg):
+    return {
+        "in_z": ("fsdp", "tp"), "in_x": ("fsdp", "tp"),
+        "in_B": ("fsdp", None), "in_C": ("fsdp", None),
+        "in_dt": ("fsdp", None),
+        "conv_x": (None, "tp"), "conv_B": (None, None), "conv_C": (None, None),
+        "conv_bias": (None,),
+        "A_log": (None,), "D": (None,), "dt_bias": (None,),
+        "norm_scale": ("tp",),
+        "out": ("tp", "fsdp"),
     }
 
 
@@ -162,6 +177,10 @@ def init_ssm_cache(cfg, batch: int, device) -> Params:
         "state": torch.zeros(batch, nh, hp, ns, dtype=torch.float32,
                              device=device),
     }
+
+
+def spec_ssm_cache(cfg):
+    return {"conv": ("dp", None, None), "state": ("dp", "tp", None, None)}
 
 
 def apply_ssm_decode(p: Params, x: torch.Tensor, cfg, cache: Params):

@@ -5,8 +5,10 @@ Port of ``repro.models.moe``: the same parameter tree (``router`` (D, E),
 ``wi``/``wg``/``wo`` stacked per expert, optional ``shared`` experts), the
 same capacity, dispatch order, drops and balance loss.  The expert
 products are plain matrix products (the reference runs them outside any
-Pallas kernel too).  Left out: the sharding specs (``spec_moe``) and the
-scatter path's ``constrain`` calls (the identity on one device).
+Pallas kernel too).  The sharding specs (``spec_moe``, the shared
+experts' included) are the reference's, on plain tuples, for
+``Model.param_specs``.  Left out: the scatter path's ``constrain`` calls
+(the identity on one device, and the port runs on one).
 
 Both paths take their routing decision from ``route`` (each token's
 experts, in choice order), looked up at call time, so a caller can record
@@ -40,6 +42,22 @@ def layout_moe(cfg) -> Layout:
         fs = e.n_shared_experts * f
         p["shared"] = {"wi": ((d, fs), "dense"), "wg": ((d, fs), "dense"),
                        "wo": ((fs, d), "dense")}
+    return p
+
+
+def spec_moe(cfg):
+    e = cfg.moe
+    p = {"router": (None, None)}
+    if cfg.act == "swiglu":
+        p["wi"] = ("ep", "fsdp", None)
+        p["wg"] = ("ep", "fsdp", None)
+        p["wo"] = ("ep", None, "fsdp")
+    else:
+        p["wi"] = ("ep", "fsdp", None)
+        p["wo"] = ("ep", None, "fsdp")
+    if e.n_shared_experts:
+        p["shared"] = {"wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"),
+                       "wo": ("tp", "fsdp")}
     return p
 
 

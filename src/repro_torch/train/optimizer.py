@@ -6,8 +6,10 @@ reference's one order (``repro_torch._tree``); gradient calibration steps
 a list ``[theta]`` with AdamW.  The states have the reference's layout:
 ``{"m": tree, "v": tree, "count": 0-d int32}`` for AdamW and ``{"f": tree
 of {"vr", "vc"} or {"v"}, "count": 0-d int32}`` for Adafactor, the count
-on the device of the first parameter.  The logical sharding specs
-(``opt_state_specs``) are not ported: the port runs on one device.
+on the device of the first parameter.  ``opt_state_specs`` gives the
+states' logical sharding specs from the parameters' (plain tuples, for
+``repro_torch.sharding``); no update reads them, since the port runs on
+one device.
 
 Every step runs in float32, as the reference's does: the moments are
 float32, the gradient is cast to float32 before it enters them, AdamW's
@@ -23,6 +25,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from repro_torch._tree import leaves, map_with_keys, unflatten
+from repro_torch.sharding.specs import map_specs
 
 F32 = torch.float32
 
@@ -204,3 +207,19 @@ def adafactor_update(params, grads, state: Dict, *, lr: float,
 
 def opt_update(name: str) -> Callable:
     return {"adamw": adamw_update, "adafactor": adafactor_update}[name]
+
+
+def opt_state_specs(name: str, param_specs):
+    """Logical specs for the optimizer state, mirroring param specs:
+    AdamW's moments take the parameters' specs; Adafactor's row means
+    drop the last dim and its column means the one before it, and a leaf
+    of fewer than two dims keeps its spec for ``v``; ``count`` is
+    replicated."""
+    if name == "adamw":
+        return {"m": param_specs, "v": param_specs, "count": None}
+
+    def one(spec):
+        if len(spec) >= 2:
+            return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+        return {"v": spec}
+    return {"f": map_specs(one, param_specs), "count": None}

@@ -13,9 +13,11 @@ the new state carries ``step + 1``.
 
 The step is pure: gradients come from ``torch.autograd.grad`` on detached
 copies of the parameters, so nothing accumulates into any ``.grad`` and
-the input state is left as it was.  The reference's jit, ``lax.scan``
-over microbatches and sharding specs (``state_specs``) have no
-counterpart here: the port runs eagerly on one device.
+the input state is left as it was.  The reference's jit and ``lax.scan``
+over microbatches have no counterpart here: the port runs eagerly on one
+device.  ``state_specs`` gives the train state's logical sharding specs
+(for ``repro_torch.sharding`` and the dry-run's per-device bytes); the
+step itself reads none.
 """
 from __future__ import annotations
 
@@ -27,13 +29,22 @@ from repro_torch._device import DeviceLike
 from repro_torch._tree import leaves, map_with_keys, unflatten
 from repro_torch.models import build_model
 
-from .optimizer import opt_update
+from .optimizer import opt_state_specs, opt_update
 from .state import TrainState, make_train_state
 
 __all__ = ["TrainState", "make_train_state", "make_train_step",
-           "train_step", "loss_and_grads", "compress_grads"]
+           "train_step", "loss_and_grads", "compress_grads", "state_specs"]
 
 F32 = torch.float32
+
+
+def state_specs(cfg, model) -> TrainState:
+    """The logical specs of ``make_train_state``'s tree: the model's
+    parameter specs, the optimizer state's, and a replicated step."""
+    pspec = model.param_specs()
+    return TrainState(params=pspec,
+                      opt=opt_state_specs(cfg.optimizer, pspec),
+                      step=None)
 
 
 def _quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

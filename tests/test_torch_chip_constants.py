@@ -538,3 +538,123 @@ def test_head_dim_80_and_n_64_bounds(which):
     assert got == pytest.approx(want, rel=1e-12)
     assert by == "operations" and rest == 21_516_779_520
     assert got == pytest.approx(0.321, abs=5e-4)
+
+
+# ------------------------------------- the sharding phase's constants
+
+# the CPU rehearsal's S2 cells: reduced SHARDING_ARCH at a small train and
+# prefill shape whose batch splits over both meshes' data axes
+SHARDING_SMALL = [("train_small", "train", 64, 32),
+                  ("prefill_small", "prefill", 64, 32)]
+
+SHARDING_CHILD = r"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+from repro.configs import (ARCHS, SHAPES, ShapeConfig, get_config, reduced,
+                           shape_applicable)
+from repro.launch.mesh import make_production_mesh
+from repro.models import build_model
+from repro.models.api import abstract_cache, abstract_params, abstract_state
+from repro.sharding.specs import make_rules, tree_shardings
+from repro.train.step import state_specs
+assert jax.device_count() == 512, jax.device_count()
+
+def bf16_params(p):                      # repro/launch/dryrun.py:67-70
+    return jax.tree.map(
+        lambda s: (jax.ShapeDtypeStruct(s.shape, jnp.bfloat16)
+                   if jnp.issubdtype(s.dtype, jnp.floating) else s), p)
+
+def sharded_bytes(abs_tree, sh_tree):    # repro/launch/dryrun.py:72-82
+    total = 0
+    for a, sh in zip(jax.tree.leaves(abs_tree), jax.tree.leaves(sh_tree)):
+        total += int(np.prod(sh.shard_shape(a.shape))) * a.dtype.itemsize
+    return total
+
+def cell(cfg, shape, multi_pod):         # run_cell's persistent_bytes
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    rules = make_rules(cfg, multi_pod=multi_pod,
+                       mode="train" if shape.kind == "train" else "serve",
+                       global_batch=shape.global_batch)
+    model = build_model(cfg)
+    if shape.kind == "train":
+        state = abstract_state(cfg)
+        return sharded_bytes(state, tree_shardings(
+            state_specs(cfg, model), mesh, rules, state))
+    params = bf16_params(abstract_params(cfg))
+    cache = abstract_cache(cfg, shape)
+    return (sharded_bytes(params, tree_shardings(model.param_specs(), mesh,
+                                                 rules, params))
+            + sharded_bytes(cache, tree_shardings(model.cache_specs(), mesh,
+                                                  rules, cache)))
+
+MESHES = (("16x16", False), ("2x16x16", True))
+OUT["REFERENCE_SHARDED_BYTES"] = {
+    f"{arch}__{name}__{m}": cell(get_config(arch), shape, mp)
+    for arch in sorted(ARCHS) for name, shape in SHAPES.items()
+    if shape_applicable(get_config(arch), shape) for m, mp in MESHES}
+small = reduced(get_config(PAYLOAD["arch"]))
+OUT["reduced"] = {
+    f"{small.name}__{s[0]}__{m}": cell(small, ShapeConfig(*s), mp)
+    for s in PAYLOAD["shapes"] for m, mp in MESHES}
+"""
+
+
+@pytest.fixture(scope="module")
+def sharding_values():
+    """The script, and the reference's per-device bytes: every cell at
+    full width, and reduced SHARDING_ARCH at SHARDING_SMALL."""
+    script = _script()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=512")
+        ref = run_reference(SHARDING_CHILD, {"arch": script.SHARDING_ARCH,
+                                             "shapes": SHARDING_SMALL})
+    return script, ref
+
+
+def test_sharded_bytes_constant_matches_the_reference(sharding_values):
+    """``REFERENCE_SHARDED_BYTES`` is the reference's ``sharded_bytes`` of
+    all 32 cells on both production meshes, integer for integer."""
+    script, ref = sharding_values
+    assert _script_values(("REFERENCE_SHARDED_BYTES",)) == {
+        "REFERENCE_SHARDED_BYTES": ref["REFERENCE_SHARDED_BYTES"]}
+    assert script.REFERENCE_SHARDED_BYTES == ref["REFERENCE_SHARDED_BYTES"]
+    assert len(script.REFERENCE_SHARDED_BYTES) == 64
+    assert sorted(script.SHARDING_MESHES) == ["16x16", "2x16x16"]
+
+
+def test_chip_sharding_checks_on_the_cpu(sharding_values, monkeypatch,
+                                         capsys):
+    """``chip_smoke.py``'s S1 and S2 on the CPU standing in for the card:
+    S1 over every cell at full width (meta trees) and reduced
+    SHARDING_ARCH at SHARDING_SMALL, against the reference; S2 on the
+    reduced arch's real trees.  Every gate passes, and each planted fault
+    (all three plant on the CPU) breaks exactly the gates
+    ``SHARDING_FAULTS`` lists (``sharding_checks`` checks both)."""
+    import torch
+    from repro_torch.configs import (ARCHS, SHAPES, ShapeConfig, get_config,
+                                     reduced, shape_applicable)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from torch_host_rise import host_rise
+    script, ref = sharding_values
+    monkeypatch.setattr(script, "device_rise", host_rise)
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    before = [k.launches for k in counted]
+    small = reduced(get_config(script.SHARDING_ARCH))
+    train, prefill = (ShapeConfig(*s) for s in SHARDING_SMALL)
+    cells = [(get_config(a), s) for a in sorted(ARCHS)
+             for s in SHAPES.values() if shape_applicable(get_config(a), s)]
+    cells += [(small, train), (small, prefill)]
+    want = {**script.REFERENCE_SHARDED_BYTES, **ref["reduced"]}
+    out = script.sharding_checks(torch.device("cpu"), cells, want,
+                                 (small, train, prefill))
+    assert out["rise"] == 0
+    assert [k.launches for k in counted] == before
+    text = capsys.readouterr().out
+    assert f"sharding S1 {len(cells) * 2} cells: device rise 0 bytes, " \
+           "every cell equal to the reference" in text
+    assert "coverage even" in text
+    for fault, gates in script.SHARDING_FAULTS.items():
+        assert f"planted fault {fault}: broke {sorted(gates)}" in text

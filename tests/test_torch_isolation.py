@@ -54,7 +54,8 @@ assert {"repro_torch.launch", "repro_torch.launch.serve",
         "repro_torch.train.state", "repro_torch.train.loop",
         "repro_torch.launch.train", "repro_torch.roofline",
         "repro_torch.roofline.analysis", "repro_torch.roofline.hlo_parse",
-        "repro_torch.models.api"} <= set(names)
+        "repro_torch.models.api", "repro_torch.launch.mesh",
+        "repro_torch.sharding", "repro_torch.sharding.specs"} <= set(names)
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -119,6 +120,16 @@ res = train(reduced(get_config("qwen2-0.5b")), steps=2, global_batch=2,
             seq_len=8, ckpt_dir=tempfile.mkdtemp(), log_fn=lambda s: None,
             device="cpu")
 assert len(res["losses"]) == 2 and int(res["state"].step) == 2
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import api, build_model
+from repro_torch.sharding import make_rules, sharded_bytes, tree_shardings
+from repro_torch.train import state_specs
+cfg = get_config("qwen2-0.5b")
+state = api.abstract_state(cfg)
+assert sharded_bytes(state, tree_shardings(
+    state_specs(cfg, build_model(cfg, device="meta")),
+    make_production_mesh(), make_rules(cfg, global_batch=256), state),
+    make_production_mesh()) == 275615240
 loaded = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded

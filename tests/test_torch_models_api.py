@@ -14,7 +14,6 @@ scale, one seed one batch.  Last, ``chip_smoke.py``'s ``api_checks`` on
 the CPU at reduced sizes, with a count of the bytes ops make standing in
 for the card's peak allocation.
 """
-import contextlib
 import importlib.util
 import json
 import os
@@ -22,14 +21,13 @@ import time
 
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from repro_torch._tree import map_with_keys
 from repro_torch.configs import (ARCHS, SHAPES, ShapeConfig, get_config,
                                  reduced, shape_applicable)
 from repro_torch.models import api, build_model
 from repro_torch.train import TrainState, make_train_state
+from torch_host_rise import host_rise as _host_rise
 from torch_reference import run_reference
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -234,31 +232,6 @@ def _load_chip_smoke():
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     return script
-
-
-class _Made(TorchDispatchMode):
-    """Sums the bytes of every tensor off the meta device an op makes."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        self.bytes += sum(t.numel() * t.element_size()
-                          for t in tree_leaves(out)
-                          if isinstance(t, torch.Tensor) and not t.is_meta)
-        return out
-
-
-@contextlib.contextmanager
-def _host_rise(dev):
-    """``device_rise``'s stand-in on the CPU (which keeps no allocation
-    peak): the bytes of every real tensor made inside the block."""
-    out = {}
-    with _Made() as made:
-        yield out
-    out["bytes"] = made.bytes
 
 
 def test_chip_api_checks_on_the_cpu(monkeypatch, capsys):

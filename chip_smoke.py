@@ -291,6 +291,23 @@ after:
     the product of the mesh axes the leaf's spec leaves unused.  Three
     faults planted in the rules, the resolution and a spec tree must each
     break the gates ``SHARDING_FAULTS`` lists and no other.
+  * The dry-run launcher (``python -m repro_torch.launch.dryrun``), every
+    kernel's launch count held at 0: D1 the CLI's ``main`` in one child
+    process a held cell (DRYRUN_CELLS: qwen2-0.5b train_4k on both
+    meshes and with ``force_scheme=dp``, its prefill_32k and decode_32k,
+    mamba2-780m decode_32k, qwen3-moe-235b-a22b train_4k), all at once,
+    each with its wall time, a device rise of 0 bytes and 0 launches;
+    each record's exact fields equal to the reference's and its FLOPs,
+    bytes, collectives and ``predict_cell`` step time within
+    DRYRUN_LIMITS of the reference's record (REFERENCE_DRYRUN, from the
+    reference's ``run_cell`` under jax 0.9.0), and long_500k's skip
+    record; D2 sec5's three what-ifs on the port's qwen3-moe-235b-a22b
+    record and ``predict_cell_des`` on its qwen2-0.5b train_4k record,
+    within the step-time limit of the reference records' answers.
+    Three faults planted in the count and the collectives (the train step
+    counted forward only, the totals not divided over the chips, one
+    layer's collectives) must each break the gate ``DRYRUN_FAULTS``
+    lists.
 
 Any failure exits non-zero.  The line before the last is a JSON object of
 the kernels' measurements; the last line is
@@ -1315,6 +1332,237 @@ REFERENCE_SHARDED_BYTES = {
     "zamba2-2.7b__long_500k__16x16": 3_385_351_748,
     "zamba2-2.7b__long_500k__2x16x16": 3_385_351_748,
 }
+# The dry-run (``repro_torch.launch.dryrun``): D1 runs its CLI in one child
+# process a held cell, all at once, on the card's machine; each record is
+# held to the reference's record of the cell (REFERENCE_DRYRUN) within
+# DRYRUN_LIMITS, its exact fields equal.  (arch, shape, multi_pod,
+# overrides, tag) of each held cell:
+DRYRUN_CELLS = [
+    ("qwen2-0.5b", "train_4k", False, {}, ""),
+    ("qwen2-0.5b", "train_4k", True, {}, ""),
+    ("qwen2-0.5b", "train_4k", False, {"force_scheme": "dp"}, "dp"),
+    ("qwen2-0.5b", "prefill_32k", False, {}, ""),
+    ("qwen2-0.5b", "decode_32k", False, {}, ""),
+    ("mamba2-780m", "decode_32k", False, {}, ""),
+    ("qwen3-moe-235b-a22b", "train_4k", False, {}, ""),
+]
+# the skip record of an attention arch at long_500k (no file is written)
+DRYRUN_SKIP = ("qwen2-0.5b", "long_500k")
+REFERENCE_DRYRUN_SKIP = {
+    "arch": "qwen2-0.5b", "shape": "long_500k", "skipped": True,
+    "reason": "long_500k requires sub-quadratic attention (see DESIGN.md §5)"}
+# port / reference: FLOPs (and the kernel-adjusted FLOPs where the
+# reference has them); bytes (kernel-adjusted, or raw for decode and where
+# the reference's matcher removed no tile); collective wire bytes per
+# device, summed over every op kind; and
+# ``predict_cell``'s step time on the port's record against the
+# reference's record
+DRYRUN_LIMITS = {"flops": (0.8, 1.25), "bytes": (1 / 3, 3.0),
+                 "collectives": (1 / 3, 3.0), "step_s": (1 / 3, 3.0)}
+# D2: sec5's three what-ifs on this cell's port record (the what-if
+# step time against the reference record's, within the step_s limit), and
+# the DES on this one
+DRYRUN_WHATIF_CELL = ("qwen3-moe-235b-a22b", "train_4k", "16x16")
+DRYRUN_DES_CELL = ("qwen2-0.5b", "train_4k", "16x16")
+# faults planted in the code under test, each with the gate it must break
+# on its cell: the train step counted forward only (no gradient, no
+# update); the count's totals not divided over the chips; the collectives
+# of one layer (every term over the layer count)
+DRYRUN_FAULTS = {
+    "train_forward_only": (("qwen2-0.5b", "train_4k", False, {}, ""),
+                           "flops"),
+    "count_not_per_chip": (("qwen2-0.5b", "decode_32k", False, {}, ""),
+                           "flops"),
+    "one_layer_collectives": (("qwen2-0.5b", "decode_32k", False, {}, ""),
+                              "collectives"),
+}
+# The reference's records of the held cells, summarised by
+# ``dryrun_summary``: its ``run_cell`` under jax 0.9.0 on 512 forced host
+# devices (XLA:CPU), in a child that aliases ``jax.experimental.enable_x64``
+# to ``jax.enable_x64`` and makes ``jax.make_mesh`` default to Auto axes;
+# ``step_s`` is ``predict_cell`` on the record, the what-ifs and the DES
+# are those of DRYRUN_WHATIF_CELL and DRYRUN_DES_CELL;
+# tests/test_torch_dryrun.py recomputes them all.
+REFERENCE_DRYRUN = {
+    "qwen2-0.5b__train_4k__16x16": {
+        "exact": {"arch": "qwen2-0.5b",
+                  "shape": "train_4k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "train",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 275615240,
+                  "roofline_chips": 256,
+                  "model_flops": 3108191059574784.0},
+        "flops": 4586200438407168.0,
+        "bytes": 449467143714816.0,
+        "kadj_flops": 4586200438407168.0,
+        "kadj_bytes": 449467143714816.0,
+        "removed_tile_bytes": 0.0,
+        "coll": 40919665938.5,
+        "collectives": {"all-gather": [821.0, 12285723648.0],
+                        "all-reduce": [174.0, 8420411602.5],
+                        "all-to-all": [50.0, 19963969536.0],
+                        "collective-permute": [3.0, 249561152.0]},
+        "step_s": 0.9771033556953088,
+    },
+    "qwen2-0.5b__train_4k__2x16x16": {
+        "exact": {"arch": "qwen2-0.5b",
+                  "shape": "train_4k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "2x16x16",
+                  "chips": 512,
+                  "kind": "train",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 275615240,
+                  "roofline_chips": 512,
+                  "model_flops": 3108191059574784.0},
+        "flops": 4586200438407168.0,
+        "bytes": 458983691814912.0,
+        "kadj_flops": 4586200438407168.0,
+        "kadj_bytes": 458983691814912.0,
+        "removed_tile_bytes": 0.0,
+        "coll": 24977261266.75,
+        "collectives": {"all-gather": [823.0, 8131094528.0],
+                        "all-reduce": [201.0, 6511860402.75],
+                        "all-to-all": [50.0, 10092085248.0],
+                        "collective-permute": [3.0, 242221088.0]},
+        "step_s": 0.5125188278481554,
+    },
+    "qwen2-0.5b__train_4k__16x16__dp": {
+        "exact": {"arch": "qwen2-0.5b",
+                  "shape": "train_4k",
+                  "tag": "dp",
+                  "overrides": {"force_scheme": "dp"},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "train",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 275615240,
+                  "roofline_chips": 256,
+                  "model_flops": 3108191059574784.0},
+        "flops": 4586200438407168.0,
+        "bytes": 374388114633728.0,
+        "kadj_flops": 4309123508207616.0,
+        "kadj_bytes": 128802408108032.0,
+        "removed_tile_bytes": 959319166116.0,
+        "coll": 9681084303.46875,
+        "collectives": {"all-gather": [340.0, 3230745600.0],
+                        "all-reduce": [78.0, 6421879695.46875],
+                        "all-to-all": [1.0, 13762560.0],
+                        "collective-permute": [2.0, 14696448.0]},
+        "step_s": 0.7325464625926394,
+    },
+    "qwen2-0.5b__prefill_32k__16x16": {
+        "exact": {"arch": "qwen2-0.5b",
+                  "shape": "prefill_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "prefill",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 112234244,
+                  "roofline_chips": 256,
+                  "model_flops": 1036063686524928.0},
+        "flops": 3705912661377024.0,
+        "bytes": 485196145688064.0,
+        "kadj_flops": 2967040847511552.0,
+        "kadj_bytes": 160266298916352.0,
+        "removed_tile_bytes": 1269257213952.0,
+        "coll": 3362754688.0,
+        "collectives": {"all-gather": [217.0, 3362734080.0],
+                        "all-reduce": [1.0, 13440.0],
+                        "collective-permute": [1.0, 7168.0]},
+        "step_s": 0.9187369012734382,
+    },
+    "qwen2-0.5b__decode_32k__16x16": {
+        "exact": {"arch": "qwen2-0.5b",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 263229188,
+                  "roofline_chips": 256,
+                  "model_flops": 126472617984.0},
+        "flops": 487260684288.0,
+        "bytes": 1461988861952.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 17081340.0,
+        "collectives": {"all-gather": [1.0, 26880.0],
+                        "all-reduce": [170.0, 17054460.0]},
+        "step_s": 0.0028049509518590344,
+    },
+    "mamba2-780m__decode_32k__16x16": {
+        "exact": {"arch": "mamba2-780m",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 202885636,
+                  "roofline_chips": 256,
+                  "model_flops": 219448541184.0},
+        "flops": 204510068736.0,
+        "bytes": 348035919872.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 28590912.0,
+        "collectives": {"all-gather": [385.0, 21934080.0],
+                        "all-reduce": [97.0, 4518720.0],
+                        "collective-permute": [1248.0, 2138112.0]},
+        "step_s": 0.0007600716109497475,
+    },
+    "qwen3-moe-235b-a22b__train_4k__16x16": {
+        "exact": {"arch": "qwen3-moe-235b-a22b",
+                  "shape": "train_4k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "train",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 4058750968,
+                  "roofline_chips": 256,
+                  "model_flops": 1.3961208666469171e+17},
+        "flops": 4.713892221298934e+17,
+        "bytes": 1.1073463642110976e+16,
+        "kadj_flops": 4.6146722920084275e+17,
+        "kadj_bytes": 6693407223247872.0,
+        "removed_tile_bytes": 17109595386184.0,
+        "coll": 1236819805718.5,
+        "collectives": {"all-gather": [4328.0, 124528111680.0],
+                        "all-reduce": [1714.0, 1109982467542.5],
+                        "all-to-all": [2.0, 2013265920.0],
+                        "collective-permute": [565.0, 295960576.0]},
+        "step_s": 24.834626947324736,
+    },
+}
+REFERENCE_DRYRUN_WHATIF = {
+    "ici_x2": 22.773260604460567,
+    "hbm_x2": 16.858178664686488,
+    "peak_x2": 24.834626947324736,
+}
+REFERENCE_DRYRUN_DES = {"step_s": 1.7559880789781328,
+                        "events": 1942624}
 # unit roundoff of bfloat16 (8 significand bits)
 BF16_U = 2.0 ** -8
 PREFILL_B, PREFILL_S, PREFILL_DECODE = 4, 2048, 16
@@ -6317,6 +6565,257 @@ def sharding_phase(dev):
     return {(k, "sharding"): 0 for k in ("flash_attention_fwd", "ssd_scan")}
 
 
+DRYRUN_EXACT = ("arch", "shape", "tag", "overrides", "mesh", "chips", "kind",
+                "scheme", "ok", "persistent_bytes_per_device")
+
+DRYRUN_CHILD = r"""
+import json, sys, time
+import torch
+dev = torch.device("cuda", 0)
+torch.cuda.init()
+torch.cuda.synchronize(dev)
+base = torch.cuda.memory_allocated(dev)
+torch.cuda.reset_peak_memory_stats(dev)
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.maxmin_fair import masked_min_rows
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+dryrun.main(sys.argv[1:])
+wall = time.perf_counter() - t0
+torch.cuda.synchronize(dev)
+print(json.dumps({"wall": wall,
+                  "rise": torch.cuda.max_memory_allocated(dev) - base,
+                  "launches": sum(k.launches for k in (
+                      flash_attention_fwd, masked_min_rows, ssd_scan))}))
+"""
+
+
+def dryrun_key(cell) -> str:
+    arch, shape, multi_pod, _, tag = cell
+    mesh = "2x16x16" if multi_pod else "16x16"
+    return f"{arch}__{shape}__{mesh}" + (f"__{tag}" if tag else "")
+
+
+def dryrun_summary(rec) -> dict:
+    """What D1 compares of a dry-run record: the exact fields, the totals
+    over all chips, the kernel-adjusted ones (None for decode), the
+    collective wire bytes per device, and each op's count and bytes."""
+    ro, ka = rec["roofline"], rec["roofline_kernel_adjusted"]
+    return {
+        "exact": dict({k: rec[k] for k in DRYRUN_EXACT},
+                      roofline_chips=ro["chips"],
+                      model_flops=ro["model_flops"]),
+        "flops": ro["hlo_flops_total"], "bytes": ro["hlo_bytes_total"],
+        "kadj_flops": ka and ka["hlo_flops_total"],
+        "kadj_bytes": ka and ka["hlo_bytes_total"],
+        "removed_tile_bytes": ka and ka["removed_tile_bytes"],
+        "coll": ro["coll_bytes_per_device"],
+        "collectives": {op: [v["count"], v["wire_bytes"]]
+                        for op, v in sorted(rec["collectives"].items())}}
+
+
+def dryrun_gates(got, want) -> dict:
+    """{gate: (port / reference ratios, passed)} for one cell's summaries
+    (``dryrun_summary``, each with its ``step_s``) within DRYRUN_LIMITS;
+    "exact" compares the exact fields."""
+    def within(gate, ratios):
+        lo, hi = DRYRUN_LIMITS[gate]
+        return ratios, all(lo <= r <= hi for r in ratios)
+    flops = [got["flops"] / want["flops"]]
+    if want["kadj_flops"] is not None:
+        flops.append(got["kadj_flops"] / want["kadj_flops"])
+    key = "kadj_bytes" if want["removed_tile_bytes"] else "bytes"
+    return {"exact": ([], got["exact"] == want["exact"]),
+            "flops": within("flops", flops),
+            "bytes": within("bytes", [got[key] / want[key]]),
+            "collectives": within("collectives", [got["coll"] / want["coll"]]),
+            "step_s": within("step_s", [got["step_s"] / want["step_s"]])}
+
+
+def dryrun_step_s(rec) -> float:
+    """``predict_cell`` on one record (written under its untagged name)."""
+    from repro_torch.core import predict_cell
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, f"{rec['arch']}__{rec['shape']}__"
+                               f"{rec['mesh']}.json"), "w") as f:
+            json.dump(rec, f)
+        return predict_cell(rec["arch"], rec["shape"], rec["mesh"],
+                            dryrun_dir=tmp).step_s
+
+
+@contextlib.contextmanager
+def dryrun_fault(fault):
+    """A fault in the dry-run (``DRYRUN_FAULTS``)."""
+    from repro_torch.roofline import count as count_mod
+    from repro_torch.sharding import collectives
+    from repro_torch.train import step as step_mod
+    if fault == "train_forward_only":
+        def forward_only(model, params, batch, *, microbatches=1):
+            with torch.no_grad():
+                loss, metrics = model.loss(params, batch)
+            return loss, metrics, params
+        with swapped(step_mod, "loss_and_grads", forward_only), \
+                swapped(step_mod, "opt_update",
+                        lambda name: lambda p, g, s, lr: (p, s, lr)):
+            yield
+    elif fault == "count_not_per_chip":
+        real = count_mod.count
+        with swapped(count_mod, "count",
+                     lambda fn, *a, chips=1, **kw: real(fn, *a, **kw)):
+            yield
+    elif fault == "one_layer_collectives":
+        real = collectives.step_collectives
+
+        def one_layer(cfg, *args, **kw):
+            return {op: {k: v / cfg.num_layers for k, v in agg.items()}
+                    for op, agg in real(cfg, *args, **kw).items()}
+        with swapped(collectives, "step_collectives", one_layer):
+            yield
+    else:
+        yield
+
+
+def dryrun_checks(records, want) -> None:
+    """D1's gates on ``records`` (``{key: record}``, the port's records of
+    DRYRUN_CELLS) against ``want`` (REFERENCE_DRYRUN), each cell's ratios
+    printed, the ungated ones too; then each planted fault, run here in
+    this process on its cell, must break its gate."""
+    from repro_torch.launch.dryrun import run_cell
+    for cell in DRYRUN_CELLS:
+        key = dryrun_key(cell)
+        got = dict(dryrun_summary(records[key]),
+                   step_s=dryrun_step_s(records[key]))
+        w = want[key]
+        gates = dryrun_gates(got, w)
+        print(f"dryrun D1 {key}: " + " ".join(
+            f"{g}={'ok' if ok else 'FAILED'}"
+            + (f" {[round(r, 4) for r in rs]}" if rs else "")
+            for g, (rs, ok) in gates.items())
+            + f"; ungated: raw_bytes={got['bytes'] / w['bytes']:.4f}"
+            + (f" kadj_bytes={got['kadj_bytes'] / w['kadj_bytes']:.4f}"
+               f" removed_tile_bytes port={got['removed_tile_bytes']!r}"
+               f" reference={w['removed_tile_bytes']!r}"
+               if w["kadj_bytes"] is not None else "")
+            + f" collectives port={got['collectives']} reference="
+            f"{w['collectives']}", flush=True)
+        failed = [g for g, (_, ok) in gates.items() if not ok]
+        check(not failed, f"dryrun D1 {key}: gates {failed} failed: "
+              f"{gates}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for fault, (cell, gate) in DRYRUN_FAULTS.items():
+            key = dryrun_key(cell)
+            arch, shape, multi_pod, overrides, tag = cell
+            with dryrun_fault(fault), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                rec = run_cell(arch, shape, multi_pod, tmp,
+                               overrides=overrides or None, tag=tag)
+            got = dict(dryrun_summary(rec), step_s=dryrun_step_s(rec))
+            gates = dryrun_gates(got, want[key])
+            broke = sorted(g for g, (_, ok) in gates.items() if not ok)
+            print(f"dryrun planted fault {fault} on {key}: broke {broke} "
+                  f"({gate}: {gates[gate][0]})", flush=True)
+            check(gate in broke, f"dryrun fault {fault}: the {gate} gate "
+                  f"held: {gates[gate]}")
+
+
+def dryrun_d2(records) -> None:
+    """D2: ``record_phase``'s consumers on the port's own records, beside
+    the synthetic DRYRUN_RECORDS: ``predict_cell`` on every held cell (in
+    D1), sec5's three what-ifs on DRYRUN_WHATIF_CELL and one
+    ``predict_cell_des`` (DRYRUN_DES_CELL), each against the reference
+    record's answer within the step_s limit."""
+    from repro_torch.core import predict_cell_des, whatif
+    lo, hi = DRYRUN_LIMITS["step_s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in (dryrun_key(c) for c in DRYRUN_CELLS if not c[4]):
+            with open(os.path.join(tmp, key + ".json"), "w") as f:
+                json.dump(records[key], f)
+        for name, kw in RECORD_WHATIF.items():
+            w = whatif(*DRYRUN_WHATIF_CELL, dryrun_dir=tmp, **kw)
+            r = w["whatif_s"] / REFERENCE_DRYRUN_WHATIF[name]
+            print(f"dryrun D2 whatif {name}: whatif_s={w['whatif_s']!r} "
+                  f"speedup={w['speedup']!r} ratio={r:.4f}", flush=True)
+            check(lo <= r <= hi, f"dryrun D2 whatif {name}: ratio {r}")
+        t0 = time.perf_counter()
+        des = predict_cell_des(*DRYRUN_DES_CELL, dryrun_dir=tmp)
+        r = des["step_s"] / REFERENCE_DRYRUN_DES["step_s"]
+        print(f"dryrun D2 predict_cell_des {'__'.join(DRYRUN_DES_CELL)}: "
+              f"step_s={des['step_s']!r} events={des['events']} ratio="
+              f"{r:.4f} host_wall_s={time.perf_counter() - t0:.3f}",
+              flush=True)
+        check(lo <= r <= hi, f"dryrun D2 predict_cell_des: ratio {r}")
+
+
+def dryrun_phase(dev):
+    """(r) the dry-run launcher: D1 ``python -m repro_torch.launch.dryrun``'s
+    ``main`` for every DRYRUN_CELLS cell, one child process a cell, all at
+    once, each reporting its wall time, its card's rise in allocation (0
+    bytes) and the kernels' launches (0); the records against
+    REFERENCE_DRYRUN and the skip record (``dryrun_checks``), with
+    DRYRUN_FAULTS planted here; D2 the record consumers on the records
+    (``dryrun_d2``).  Returns the launches by path (0 each)."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.dryrun import run_cell
+    counted = (masked_min_rows, flash_attention_fwd, ssd_scan)
+    for kernel in counted:
+        kernel.launches = 0
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for cell in DRYRUN_CELLS:
+            arch, shape, multi_pod, overrides, tag = cell
+            argv = ["--arch", arch, "--shape", shape, "--out", tmp]
+            argv += ["--multi-pod"] if multi_pod else []
+            argv += ["--tag", tag] if tag else []
+            for k, v in overrides.items():
+                argv += ["--set", f"{k}={v}"]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_CHILD, *argv],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        records = {}
+        try:
+            for cell, proc in zip(DRYRUN_CELLS, procs):
+                stdout, stderr = proc.communicate(timeout=600)
+                key = dryrun_key(cell)
+                check(proc.returncode == 0, f"dryrun D1 {key}: the CLI "
+                      f"exited {proc.returncode}: {stderr[-2000:]}")
+                res = json.loads(stdout.strip().splitlines()[-1])
+                print(f"dryrun D1 {key}: CLI child wall {res['wall']:.3f} s,"
+                      f" device rise {res['rise']} bytes, kernel launches "
+                      f"{res['launches']}", flush=True)
+                check(res["rise"] == 0 and res["launches"] == 0,
+                      f"dryrun D1 {key}: the card was used: {res}")
+                with open(os.path.join(tmp, key + ".json")) as f:
+                    records[key] = json.load(f)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.communicate()
+        skip = run_cell(*DRYRUN_SKIP, False, tmp)
+        check(skip == REFERENCE_DRYRUN_SKIP and not os.path.exists(
+            os.path.join(tmp, dryrun_key((*DRYRUN_SKIP, False, {}, ""))
+                         + ".json")), f"dryrun skip record: {skip}")
+    for key, rec in records.items():
+        print(f"dryrun D1 {key}: count_s={rec['count_s']:.3f}", flush=True)
+    with device_rise(dev) as rise:
+        dryrun_checks(records, REFERENCE_DRYRUN)
+        dryrun_d2(records)
+    launches = {k.__name__: k.launches for k in counted}
+    print(f"dryrun: phase wall {time.perf_counter() - t_phase:.3f} s, "
+          f"device rise over the checks {rise['bytes']} bytes, kernel "
+          f"launches {launches}; card {card_line()}", flush=True)
+    check(rise["bytes"] == 0 and not any(launches.values()),
+          f"dryrun: the card was used: {rise} {launches}")
+    return {(k, "dryrun"): 0 for k in ("flash_attention_fwd", "ssd_scan")}
+
+
 def sass_counts(build):
     """What the tensor cores run: ``cuobjdump -sass`` counts of HGMMA (wgmma)
     in the bf16 flash kernels and of HMMA (mma.sync) and HGMMA in the bf16
@@ -6519,7 +7018,8 @@ def main() -> int:
     # sharding rules and spec trees, per-device bytes and blocks (no kernel)
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
                   hybrid_phase, encdec_phase, launch_phase, ckpt_phase,
-                  train_phase, train_loop_phase, api_phase, sharding_phase):
+                  train_phase, train_loop_phase, api_phase, sharding_phase,
+                  dryrun_phase):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

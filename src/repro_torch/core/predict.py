@@ -42,11 +42,9 @@ def load_record(arch: str, shape: str, mesh: str = "16x16",
     p = Path(dryrun_dir) / f"{arch}__{shape}__{mesh}.json"
     if not p.exists():
         raise FileNotFoundError(
-            f"dry-run record {p} missing — records are JSON in the JAX "
-            f"reference's schema, written today by its launcher "
-            f"(`python -m repro.launch.dryrun --arch {arch} --shape "
-            f"{shape}`); the port's own launcher is still to be ported "
-            f"(ROADMAP §1, training and the rest)")
+            f"dry-run record {p} missing — write it with "
+            f"`python -m repro_torch.launch.dryrun --arch {arch} --shape "
+            f"{shape}`")
     return json.loads(p.read_text())
 
 

@@ -12,13 +12,15 @@ unless given ``--device cpu``.  ``--smoke`` trains the reduced config;
 without it the config trains at full width (on the card).  The weights
 are the port's own seed-0 draw (``train``'s CPU generator), not the
 reference's ``PRNGKey(0)``, unless ``--ckpt-dir`` holds a checkpoint to
-resume from.  ``--dryrun`` (lower and compile the production cell) waits
-for the port's ``repro_torch.launch.dryrun``: it exits non-zero and
-starts no process.
+resume from.  ``--dryrun`` describes the production cell instead: it
+starts ``python -m repro_torch.launch.dryrun --arch --shape
+[--multi-pod]`` in a child and exits with its code, as the reference's
+launcher starts its dry-run.
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 
 from repro_torch._device import resolve_device
@@ -34,8 +36,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config")
     ap.add_argument("--dryrun", action="store_true",
-                    help="lower+compile the production cell instead "
-                         "(not yet ported)")
+                    help="describe the production cell instead "
+                         "(repro_torch.launch.dryrun, in a child)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -48,9 +50,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        print("[train] --dryrun: repro_torch.launch.dryrun is not yet "
-              "ported", file=sys.stderr)
-        raise SystemExit(2)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               args.arch, "--shape", args.shape]
+        if args.multi_pod:
+            cmd.append("--multi-pod")
+        raise SystemExit(subprocess.call(cmd))
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)

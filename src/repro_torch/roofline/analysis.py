@@ -73,6 +73,25 @@ def _tuple_bytes(inner: str) -> int:
     return total
 
 
+def ring_wire_bytes(op: str, result_bytes: float, group_size: int) -> float:
+    """Ring-algorithm bytes one device sends for a collective ``op`` whose
+    result is ``result_bytes`` (an all-gather's gathered array, a
+    reduce-scatter's scattered shard) over ``group_size`` devices; a
+    group of one moves nothing, except a collective-permute."""
+    gs = group_size
+    if gs <= 1 and op != "collective-permute":
+        return 0.0
+    if op == "all-reduce":
+        return 2.0 * (gs - 1) / gs * result_bytes
+    if op == "all-gather":
+        return (gs - 1) / gs * result_bytes          # result = gathered
+    if op == "reduce-scatter":
+        return float((gs - 1) * result_bytes)        # result = scattered shard
+    if op == "all-to-all":
+        return (gs - 1) / gs * result_bytes
+    return float(result_bytes)                       # collective-permute
+
+
 def parse_hlo_collectives(hlo_text: str) -> List[Dict]:
     """Returns one record per collective: op, result_bytes, group_size,
     wire_bytes (ring-algorithm bytes per participating device)."""
@@ -92,18 +111,7 @@ def parse_hlo_collectives(hlo_text: str) -> List[Dict]:
             gi = _GROUPS_IOTA_RE.search(line)
             if gi:
                 gs = int(gi.group(2))  # [num_groups, group_size]
-        if gs <= 1 and op != "collective-permute":
-            wire = 0.0
-        elif op == "all-reduce":
-            wire = 2.0 * (gs - 1) / gs * rbytes
-        elif op == "all-gather":
-            wire = (gs - 1) / gs * rbytes          # result = gathered
-        elif op == "reduce-scatter":
-            wire = (gs - 1) * rbytes               # result = scattered shard
-        elif op == "all-to-all":
-            wire = (gs - 1) / gs * rbytes
-        else:                                       # collective-permute
-            wire = float(rbytes)
+        wire = ring_wire_bytes(op, rbytes, gs)
         out.append({"op": op, "result_bytes": rbytes, "group_size": gs,
                     "wire_bytes": wire})
     return out

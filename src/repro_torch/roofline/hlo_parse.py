@@ -26,6 +26,8 @@ import math
 import re
 from typing import Dict, List, Optional, Tuple
 
+from .analysis import ring_wire_bytes
+
 _DTYPE_BYTES = {
     "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
     "f8e4m3": 1, "f8e5m2fnuz": 1, "f8e4m3fnuz": 1,
@@ -184,17 +186,7 @@ def _collective_wire(opcode: str, ins: Instr, symbols: Dict[str, str]) -> Tuple[
     if opcode.endswith("-start"):
         opcode = opcode[:-6]
     gs = _group_size(ins.rest)
-    if gs <= 1 and opcode != "collective-permute":
-        return 0.0, gs
-    if opcode == "all-reduce":
-        return 2.0 * (gs - 1) / gs * rbytes, gs
-    if opcode == "all-gather":
-        return (gs - 1) / gs * rbytes, gs
-    if opcode == "reduce-scatter":
-        return float((gs - 1)) * rbytes, gs
-    if opcode == "all-to-all":
-        return (gs - 1) / gs * rbytes, gs
-    return float(rbytes), gs  # collective-permute
+    return ring_wire_bytes(opcode, rbytes, gs), gs
 
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",

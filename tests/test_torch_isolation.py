@@ -55,7 +55,9 @@ assert {"repro_torch.launch", "repro_torch.launch.serve",
         "repro_torch.launch.train", "repro_torch.roofline",
         "repro_torch.roofline.analysis", "repro_torch.roofline.hlo_parse",
         "repro_torch.models.api", "repro_torch.launch.mesh",
-        "repro_torch.sharding", "repro_torch.sharding.specs"} <= set(names)
+        "repro_torch.sharding", "repro_torch.sharding.specs",
+        "repro_torch.roofline.count", "repro_torch.sharding.collectives",
+        "repro_torch.launch.dryrun"} <= set(names)
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
@@ -130,6 +132,10 @@ assert sharded_bytes(state, tree_shardings(
     state_specs(cfg, build_model(cfg, device="meta")),
     make_production_mesh(), make_rules(cfg, global_batch=256), state),
     make_production_mesh()) == 275615240
+import torch.distributed as dist
+from repro_torch.launch.dryrun import run_cell
+rec = run_cell("mamba2-780m", "decode_32k", False, tempfile.mkdtemp())
+assert rec["ok"] and not dist.is_initialized()
 loaded = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
@@ -166,6 +172,21 @@ def test_no_import_of_jax_or_reference(path):
         for mod in mods:
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+@pytest.mark.parametrize("path", [
+    "src/repro_torch/launch/dryrun.py", "src/repro_torch/roofline/count.py",
+    "src/repro_torch/sharding/collectives.py"])
+def test_dry_run_modules_import_no_process_group(path):
+    """The dry-run describes a mesh without one: its three modules import
+    neither jax, the reference nor ``torch.distributed``."""
+    tree = ast.parse((ROOT / path).read_text())
+    mods = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+            for a in node.names]
+    mods += [node.module for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert mods and not [m for m in mods if m.split(".")[0] in (
+        "jax", "jaxlib", "repro") or m.startswith("torch.distributed")]
 
 
 def _entry_points():

@@ -192,17 +192,16 @@ def test_load_record_reads_what_the_reference_reads(records, ref):
 
 def test_load_record_missing_file_names_the_reference_launcher(records,
                                                                ref):
-    """The port cannot write records yet: its message gives the
-    reference's command for this cell, and says the port's launcher is
-    still to be ported."""
+    """The message gives the command for this cell: the reference's names
+    its own launcher, the port's names ``repro_torch.launch.dryrun``,
+    which writes the record."""
     with pytest.raises(FileNotFoundError) as exc:
         load_record("qwen2-0.5b", "decode_32k", dryrun_dir=records)
     msg = str(exc.value)
-    command = "python -m repro.launch.dryrun --arch qwen2-0.5b --shape " \
-              "decode_32k"
-    assert command in ref["missing"] and command in msg
+    args = "--arch qwen2-0.5b --shape decode_32k"
+    assert f"python -m repro.launch.dryrun {args}" in ref["missing"]
+    assert f"python -m repro_torch.launch.dryrun {args}" in msg
     assert str(records / "qwen2-0.5b__decode_32k__16x16.json") in msg
-    assert "still to be ported" in msg
     assert DRYRUN_DIR.as_posix() == "experiments/dryrun"
 
 

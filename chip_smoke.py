@@ -317,6 +317,7 @@ repository's src/ beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ast
+import atexit
 import contextlib
 import dataclasses
 import hashlib
@@ -327,6 +328,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1375,7 +1377,54 @@ DRYRUN_FAULTS = {
                            "flops"),
     "one_layer_collectives": (("qwen2-0.5b", "decode_32k", False, {}, ""),
                               "collectives"),
+    # each per-device rule of the count and the collectives put back as it
+    # was before it, on a cell that needs it: every persistent leaf at the
+    # activations' share (and so no float32 conversion either); the
+    # bfloat16 leaves not converted; the batch taken to split over the
+    # data axis it leaves idle; a clone counted as a FLOP an element; the
+    # decode value product not split over the idle data axis; the
+    # encoder's leaves applied in decode; the sp scheme's experts
+    # dispatched by all-to-all
+    "count_replicated_as_sharded": (
+        ("granite-34b", "decode_32k", False, {}, ""), "bytes"),
+    "bf16_leaves_unconverted": (
+        ("granite-34b", "decode_32k", False, {}, ""), "bytes"),
+    "batch_split_assumed": (("mamba2-780m", "long_500k", False, {}, ""),
+                            "flops"),
+    "copies_counted_as_flops": (("stablelm-3b", "decode_32k", False, {}, ""),
+                                "flops"),
+    "value_product_unsplit": (("zamba2-2.7b", "long_500k", False, {}, ""),
+                              "flops"),
+    "encoder_in_decode": (("whisper-medium", "decode_32k", False, {}, ""),
+                          "collectives"),
+    "moe_sp_all_to_all": (
+        ("phi3.5-moe-42b-a6.6b", "prefill_32k", False, {}, ""),
+        "collectives"),
 }
+# D3: the sweep (``dryrun.sweep``, ``--all``) in one child on the card's
+# machine, over a cut list: these 16x16 cells run, each a child of the
+# sweep, and their records are held as D1's; the skip cell gets the
+# sweep's own skip record; the planted arch is registered in the sweep's
+# process only, so its child exits 1 and leaves a failure record.  Every
+# other cell of the archs x shapes x meshes product the list spans is
+# left an ``ok`` stub, which the sweep counts as done.
+DRYRUN_SWEEP_CELLS = [
+    ("granite-34b", "decode_32k"), ("qwen3-moe-235b-a22b", "decode_32k"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+    ("phi3.5-moe-42b-a6.6b", "prefill_32k"), ("stablelm-3b", "decode_32k"),
+    ("whisper-medium", "decode_32k"), ("zamba2-2.7b", "decode_32k"),
+    ("mamba2-780m", "long_500k"), ("zamba2-2.7b", "long_500k"),
+]
+DRYRUN_SWEEP_SKIP = ("qwen2-0.5b", "long_500k")
+# (the planted arch, the arch whose config it copies) and its shape
+DRYRUN_SWEEP_PLANTED = ("planted-unregistered", "qwen2-0.5b", "decode_32k")
+REFERENCE_DRYRUN_SWEEP_SKIP = {
+    "arch": "qwen2-0.5b", "shape": "long_500k", "skipped": True,
+    "mesh": "16x16", "reason": "long_500k needs sub-quadratic attention"}
+# a fault in the sweep, run on a list of the skip cell alone: the shape's
+# applicability not checked, so the cell goes to a child, which writes no
+# record (run_cell's skip)
+DRYRUN_SWEEP_FAULTS = {"sweep_applicability_unchecked": "skip"}
 # The reference's records of the held cells, summarised by
 # ``dryrun_summary``: its ``run_cell`` under jax 0.9.0 on 512 forced host
 # devices (XLA:CPU), in a child that aliases ``jax.experimental.enable_x64``
@@ -1555,6 +1604,220 @@ REFERENCE_DRYRUN = {
                         "collective-permute": [565.0, 295960576.0]},
         "step_s": 24.834626947324736,
     },
+    "granite-34b__decode_32k__16x16": {
+        "exact": {"arch": "granite-34b",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 6905999364,
+                  "roofline_chips": 256,
+                  "model_flops": 12095981617152.0},
+        "flops": 21620865368064.0,
+        "bytes": 19611867819008.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 114416640.0,
+        "collectives": {"all-gather": [88.0, 16220160.0],
+                        "all-reduce": [441.0, 98196480.0]},
+        "step_s": 0.0370770495737796,
+    },
+    "qwen3-moe-235b-a22b__decode_32k__16x16": {
+        "exact": {"arch": "qwen3-moe-235b-a22b",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 33374052356,
+                  "roofline_chips": 256,
+                  "model_flops": 5680830349312.0},
+        "flops": 74470437945344.0,
+        "bytes": 90354152008704.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 117298320.0,
+        "collectives": {"all-gather": [1598.0, 23823360.0],
+                        "all-reduce": [847.0, 93474960.0]},
+        "step_s": 0.16940346793731237,
+    },
+    "phi3.5-moe-42b-a6.6b__decode_32k__16x16": {
+        "exact": {"arch": "phi3.5-moe-42b-a6.6b",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 7386710020,
+                  "roofline_chips": 256,
+                  "model_flops": 1699936731136.0},
+        "flops": 12884901888000.0,
+        "bytes": 25708476234752.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 33862260.0,
+        "collectives": {"all-gather": [98.0, 47040.0],
+                        "all-reduce": [452.0, 29883060.0],
+                        "all-to-all": [32.0, 3932160.0]},
+        "step_s": 0.04821616965452369,
+    },
+    "phi3.5-moe-42b-a6.6b__prefill_32k__16x16": {
+        "exact": {"arch": "phi3.5-moe-42b-a6.6b",
+                  "shape": "prefill_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "prefill",
+                  "scheme": "sp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 5776097284,
+                  "roofline_chips": 256,
+                  "model_flops": 1.3925881701466112e+16},
+        "flops": 7.906381742158643e+16,
+        "bytes": 1756272041942528.0,
+        "kadj_flops": 7.456021779421594e+16,
+        "kadj_bytes": 751993787211264.0,
+        "removed_tile_bytes": 3922961932544.0,
+        "coll": 199581237248.0,
+        "collectives": {"all-gather": [418.0, 135140474880.0],
+                        "all-reduce": [65.0, 64425000960.0],
+                        "all-to-all": [64.0, 15728640.0],
+                        "collective-permute": [1.0, 32768.0]},
+        "step_s": 3.95023135127724,
+    },
+    "stablelm-3b__decode_32k__16x16": {
+        "exact": {"arch": "stablelm-3b",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 5718845444,
+                  "roofline_chips": 256,
+                  "model_flops": 715591516160.0},
+        "flops": 2057054453760.0,
+        "bytes": 34634125213696.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 22394880.0,
+        "collectives": {"all-gather": [96.0, 7372800.0],
+                        "all-reduce": [161.0, 15022080.0]},
+        "step_s": 0.06486803497719362,
+    },
+    "whisper-medium__decode_32k__16x16": {
+        "exact": {"arch": "whisper-medium",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 2892144644,
+                  "roofline_chips": 256,
+                  "model_flops": 207612805120.0},
+        "flops": 535008641024.0,
+        "bytes": 10542908067840.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 8217600.0,
+        "collectives": {"all-gather": [72.0, 2211840.0],
+                        "all-reduce": [145.0, 6005760.0]},
+        "step_s": 0.01976041348243913,
+    },
+    "zamba2-2.7b__decode_32k__16x16": {
+        "exact": {"arch": "zamba2-2.7b",
+                  "shape": "decode_32k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 1930172996,
+                  "roofline_chips": 256,
+                  "model_flops": 620131688448.0},
+        "flops": 1204873330688.0,
+        "bytes": 10726925176576.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 53586600.0,
+        "collectives": {"all-gather": [460.0, 40538880.0],
+                        "all-reduce": [154.0, 12633000.0],
+                        "collective-permute": [1674.0, 414720.0]},
+        "step_s": 0.02025613023864589,
+    },
+    "mamba2-780m__long_500k__16x16": {
+        "exact": {"arch": "mamba2-780m",
+                  "shape": "long_500k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 156436996,
+                  "roofline_chips": 256,
+                  "model_flops": 1714441728.0},
+        "flops": 25563758592.0,
+        "bytes": 135699998720.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 5670504.0,
+        "collectives": {"all-gather": [385.0, 4838400.0],
+                        "all-reduce": [97.0, 564840.0],
+                        "collective-permute": [1248.0, 267264.0]},
+        "step_s": 0.000286515810096483,
+    },
+    "zamba2-2.7b__long_500k__16x16": {
+        "exact": {"arch": "zamba2-2.7b",
+                  "shape": "long_500k",
+                  "tag": "",
+                  "overrides": {},
+                  "mesh": "16x16",
+                  "chips": 256,
+                  "kind": "decode",
+                  "scheme": "tp",
+                  "ok": True,
+                  "persistent_bytes_per_device": 3385351748,
+                  "roofline_chips": 256,
+                  "model_flops": 4844778816.0},
+        "flops": 512997031936.0,
+        "bytes": 18359398562560.0,
+        "kadj_flops": None,
+        "kadj_bytes": None,
+        "removed_tile_bytes": None,
+        "coll": 10267365.0,
+        "collectives": {"all-gather": [460.0, 8786880.0],
+                        "all-reduce": [154.0, 1417125.0],
+                        "collective-permute": [1692.0, 63360.0]},
+        "step_s": 0.03438755895829323,
+    },
+
 }
 REFERENCE_DRYRUN_WHATIF = {
     "ici_x2": 22.773260604460567,
@@ -2393,10 +2656,12 @@ def campaign_phase(dev):
 # One call of the port's host Python (the DES) in a child interpreter: it
 # prints the call's result and wall seconds as JSON.  The DES is
 # single-threaded Python, so record_phase runs its cells in several such
-# children at once
+# children at once; it imports nothing but the port's modules
 HOST_CALL = r"""
 import importlib, json, sys, time
 module, name, args, kwargs = json.loads(sys.argv[1])
+if module.split(".")[0] != "repro_torch":
+    sys.exit(f"not a module of the port: {module}")
 call = getattr(importlib.import_module(module), name)
 t0 = time.perf_counter()
 got = call(*args, **kwargs)
@@ -6647,6 +6912,7 @@ def dryrun_step_s(rec) -> float:
 @contextlib.contextmanager
 def dryrun_fault(fault):
     """A fault in the dry-run (``DRYRUN_FAULTS``)."""
+    from repro_torch.launch import dryrun as dryrun_mod
     from repro_torch.roofline import count as count_mod
     from repro_torch.sharding import collectives
     from repro_torch.train import step as step_mod
@@ -6672,23 +6938,82 @@ def dryrun_fault(fault):
                     for op, agg in real(cfg, *args, **kw).items()}
         with swapped(collectives, "step_collectives", one_layer):
             yield
+    elif fault == "count_replicated_as_sharded":
+        with swapped(dryrun_mod, "leaf_shards", lambda *a: []):
+            yield
+    elif fault == "bf16_leaves_unconverted":
+        real = count_mod.OpCounter.__init__
+
+        def unconverted(self, *args, **kw):
+            real(self, *args, **kw)
+            self._unconverted.clear()
+        with swapped(count_mod.OpCounter, "__init__", unconverted):
+            yield
+    elif fault == "batch_split_assumed":
+        with swapped(dryrun_mod, "work_replicas", lambda *a: 1):
+            yield
+    elif fault == "copies_counted_as_flops":
+        with swapped(count_mod, "_MOVES",
+                     count_mod._MOVES - {torch.ops.aten.clone}):
+            yield
+    elif fault == "value_product_unsplit":
+        with swapped(dryrun_mod, "value_split", lambda *a: None):
+            yield
+    elif fault == "encoder_in_decode":
+        with swapped(collectives._Step, "applies", lambda self, path: True):
+            yield
+    elif fault == "moe_sp_all_to_all":
+        real = collectives._expert_terms
+
+        def all_to_all(t, st, rules):
+            cfg = st.cfg
+            e = cfg.moe
+            if e is not None and cfg.family == "moe":
+                ep = collectives._legal_axes(("ep",), e.num_experts, rules,
+                                             st.mesh)
+                if set(ep) & set(st.dp + st.sp):
+                    slots = st.tokens * cfg.d_model * 4 * e.top_k \
+                        * e.capacity_factor
+                    t.add("all-to-all", slots, ep, st.mesh,
+                          2 * cfg.num_layers
+                          * (st.passes + (1 if st.train else 0)))
+                    return
+            real(t, st, rules)
+        with swapped(collectives, "_expert_terms", all_to_all):
+            yield
     else:
         yield
 
 
-def dryrun_checks(records, want) -> None:
-    """D1's gates on ``records`` (``{key: record}``, the port's records of
-    DRYRUN_CELLS) against ``want`` (REFERENCE_DRYRUN), each cell's ratios
-    printed, the ungated ones too; then each planted fault, run here in
-    this process on its cell, must break its gate."""
+def dryrun_fault_gates(want, faults=tuple(DRYRUN_FAULTS)) -> dict:
+    """Each planted fault of ``faults`` run here, in this process, on its
+    cell (``run_cell``): {fault: its cell's gates against ``want``}."""
     from repro_torch.launch.dryrun import run_cell
-    for cell in DRYRUN_CELLS:
-        key = dryrun_key(cell)
-        got = dict(dryrun_summary(records[key]),
-                   step_s=dryrun_step_s(records[key]))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fault in faults:
+            cell, _ = DRYRUN_FAULTS[fault]
+            arch, shape, multi_pod, overrides, tag = cell
+            with dryrun_fault(fault), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                rec = run_cell(arch, shape, multi_pod, tmp,
+                               overrides=overrides or None, tag=tag)
+            got = dict(dryrun_summary(rec), step_s=dryrun_step_s(rec))
+            out[fault] = dryrun_gates(got, want[dryrun_key(cell)])
+    return out
+
+
+def dryrun_checks(records, want, label="D1", faults=None) -> None:
+    """The gates on ``records`` (``{key: record}``, port records of held
+    cells) against ``want`` (REFERENCE_DRYRUN), each cell's ratios
+    printed, the ungated ones too; then each planted fault must break its
+    gate: ``faults`` is ``dryrun_fault_gates``' answer, run here when
+    None."""
+    for key, rec in records.items():
+        got = dict(dryrun_summary(rec), step_s=dryrun_step_s(rec))
         w = want[key]
         gates = dryrun_gates(got, w)
-        print(f"dryrun D1 {key}: " + " ".join(
+        print(f"dryrun {label} {key}: " + " ".join(
             f"{g}={'ok' if ok else 'FAILED'}"
             + (f" {[round(r, 4) for r in rs]}" if rs else "")
             for g, (rs, ok) in gates.items())
@@ -6700,23 +7025,192 @@ def dryrun_checks(records, want) -> None:
             + f" collectives port={got['collectives']} reference="
             f"{w['collectives']}", flush=True)
         failed = [g for g, (_, ok) in gates.items() if not ok]
-        check(not failed, f"dryrun D1 {key}: gates {failed} failed: "
+        check(not failed, f"dryrun {label} {key}: gates {failed} failed: "
               f"{gates}")
-    with tempfile.TemporaryDirectory() as tmp:
-        for fault, (cell, gate) in DRYRUN_FAULTS.items():
-            key = dryrun_key(cell)
-            arch, shape, multi_pod, overrides, tag = cell
-            with dryrun_fault(fault), \
-                    contextlib.redirect_stdout(io.StringIO()):
-                rec = run_cell(arch, shape, multi_pod, tmp,
-                               overrides=overrides or None, tag=tag)
-            got = dict(dryrun_summary(rec), step_s=dryrun_step_s(rec))
-            gates = dryrun_gates(got, want[key])
-            broke = sorted(g for g, (_, ok) in gates.items() if not ok)
-            print(f"dryrun planted fault {fault} on {key}: broke {broke} "
-                  f"({gate}: {gates[gate][0]})", flush=True)
-            check(gate in broke, f"dryrun fault {fault}: the {gate} gate "
-                  f"held: {gates[gate]}")
+    if faults is None:
+        faults = dryrun_fault_gates(want)
+    for fault, gates in faults.items():
+        cell, gate = DRYRUN_FAULTS[fault]
+        broke = sorted(g for g, (_, ok) in gates.items() if not ok)
+        print(f"dryrun planted fault {fault} on {dryrun_key(cell)}: broke "
+              f"{broke} ({gate}: {gates[gate][0]})", flush=True)
+        check(gate in broke, f"dryrun fault {fault}: the {gate} gate "
+              f"held: {gates[gate]}")
+
+
+# The cut sweep, run in a child of its own: the port's dry-run ``main``
+# with ``--all`` (and ``--force`` where asked) over the ``live`` cells
+# (arch, shape, mesh), each other cell of their archs x shapes x meshes
+# product an ``ok`` stub, ``seed`` records written over the stubs, and the
+# planted arch registered in this process only.  On the card the child
+# reports its own allocation rise and kernel launches, and hides the card
+# from the sweep's children (``CUDA_VISIBLE_DEVICES`` empty, set after
+# this process took the card), so that a child which reaches for the card
+# fails its cell
+DRYRUN_SWEEP_CHILD = r"""
+import contextlib, dataclasses, io, json, os, sys, time
+from pathlib import Path
+spec = json.loads(sys.argv[1])
+if spec["cuda"]:
+    import torch
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.maxmin_fair import masked_min_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+os.environ["CUDA_VISIBLE_DEVICES"] = ""
+from repro_torch import configs
+from repro_torch.launch import dryrun
+out = Path(spec["out"])
+out.mkdir(parents=True, exist_ok=True)
+live = {tuple(c) for c in spec["live"]}
+if spec["planted"]:
+    name, like = spec["planted"]
+    configs.ARCHS[name] = dataclasses.replace(configs.ARCHS[like], name=name)
+archs = sorted({c[0] for c in live})
+configs.list_archs = lambda: archs
+configs.SHAPES = {k: v for k, v in configs.SHAPES.items()
+                  if k in {c[1] for c in live}}
+for arch in archs:
+    for shape in configs.SHAPES:
+        for mesh in ("16x16", "2x16x16"):
+            if (arch, shape, mesh) not in live:
+                out.joinpath(f"{arch}__{shape}__{mesh}.json").write_text(
+                    json.dumps({"ok": True}))
+for name, rec in spec.get("seed", {}).items():
+    out.joinpath(name).write_text(json.dumps(rec))
+if spec.get("fault") == "sweep_applicability_unchecked":
+    configs.shape_applicable = lambda cfg, shape: True
+sys.argv = ["dryrun", "--all", "--out", str(out)] + (
+    ["--force"] if spec.get("force") else [])
+buf = io.StringIO()
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(buf):
+    dryrun.main()
+res = {"wall": time.perf_counter() - t0, "stdout": buf.getvalue()}
+if spec["cuda"]:
+    torch.cuda.synchronize(dev)
+    res["rise"] = torch.cuda.max_memory_allocated(dev) - base
+    res["launches"] = sum(k.launches for k in (
+        flash_attention_fwd, masked_min_rows, ssd_scan))
+print(json.dumps(res))
+"""
+
+
+def dryrun_sweep_spec(out, cuda=True, fault=None):
+    """The D3 child's spec (``DRYRUN_SWEEP_CHILD``): the sweep cells, the
+    skip cell and the planted arch's cell on 16x16, into ``out``; under
+    ``fault`` the skip cell alone."""
+    skip = (*DRYRUN_SWEEP_SKIP, "16x16")
+    name, like, shape = DRYRUN_SWEEP_PLANTED
+    if fault:
+        return {"cuda": cuda, "out": str(out), "live": [skip],
+                "planted": None, "fault": fault}
+    return {"cuda": cuda, "out": str(out),
+            "live": [(a, s, "16x16") for a, s in DRYRUN_SWEEP_CELLS]
+            + [skip, (name, shape, "16x16")], "planted": [name, like]}
+
+
+def dryrun_sweep_expected(spec):
+    """(every file name, the ``[sweep] <arch> x <shape> x <mesh>`` lines in
+    order, the summary line) of a cut sweep from empty, by the
+    reference's rules: stubs are done, the skip cell is skipped, every
+    other live cell gets a child and the planted one fails."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    live = {tuple(c) for c in spec["live"]}
+    planted, like = spec["planted"] or (None, None)
+    archs = sorted({c[0] for c in live})
+    shapes = [s for s in SHAPES if s in {c[1] for c in live}]
+    files, runs = [], []
+    done = failed = skipped = 0
+    for arch in archs:
+        for shape in shapes:
+            for mesh in ("16x16", "2x16x16"):
+                files.append(f"{arch}__{shape}__{mesh}.json")
+                if (arch, shape, mesh) not in live:
+                    done += 1
+                elif not shape_applicable(get_config(
+                        like if arch == planted else arch), SHAPES[shape]):
+                    skipped += 1
+                else:
+                    runs.append(f"[sweep] {arch} x {shape} x {mesh}")
+                    failed += arch == planted
+                    done += arch != planted
+    return (sorted(files), runs,
+            f"[sweep] done={done} failed={failed} skipped={skipped}")
+
+
+def dryrun_sweep_gates(spec, res, out) -> dict:
+    """{gate: passed} for a cut sweep's run (``res``, the child's answer)
+    into ``out``: its file set, the skip record (REFERENCE_DRYRUN_SWEEP_SKIP),
+    the failure record's keys and its KeyError, and the sweep's own lines
+    (each cell's, in order, and the summary)."""
+    files, runs, summary = dryrun_sweep_expected(spec)
+    lines = res["stdout"].splitlines()
+    got_runs = [ln for ln in lines if ln.startswith("[sweep] ")
+                and " x " in ln and not ln.startswith("[sweep] FAILED")]
+    skip = os.path.join(out, "__".join((*DRYRUN_SWEEP_SKIP, "16x16"))
+                        + ".json")
+    gates = {
+        "files": sorted(os.listdir(out)) == files,
+        "skip": os.path.exists(skip) and json.load(open(skip))
+        == REFERENCE_DRYRUN_SWEEP_SKIP,
+        "summary": got_runs == runs and bool(lines)
+        and lines[-1] == summary}
+    if spec["planted"]:
+        name, _, shape = DRYRUN_SWEEP_PLANTED
+        path = os.path.join(out, f"{name}__{shape}__16x16.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {}
+        gates["failure"] = (
+            sorted(rec) == ["arch", "error", "mesh", "ok", "shape"]
+            and rec["ok"] is False and (rec["arch"], rec["shape"],
+                                        rec["mesh"]) == (name, shape, "16x16")
+            and rec["error"].strip().splitlines()[-1].startswith("KeyError")
+            and f"[sweep] FAILED {name} x {shape}:" in lines)
+    return gates
+
+
+def dryrun_sweep_child(spec, env):
+    """The cut sweep's child, in a session of its own, so that it can be
+    stopped with the children it starts (``dryrun_sweeps_stop``)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SWEEP_CHILD, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True)
+
+
+def dryrun_sweep_checks(spec, res, out, want, faulted) -> None:
+    """D3's gates on the sweep's run, its nine records through
+    ``dryrun_checks`` against ``want``, and each sweep fault's run
+    (``faulted``: {fault: (spec, answer, out dir)}) breaking its gate."""
+    gates = dryrun_sweep_gates(spec, res, out)
+    print(f"dryrun D3 sweep: child wall {res['wall']:.3f} s; the sweep "
+          f"process's device rise {res.get('rise')} bytes, kernel launches "
+          f"{res.get('launches')}; its children counted with no card "
+          "visible; "
+          + " ".join(f"{g}={'ok' if ok else 'FAILED'}"
+                     for g, ok in gates.items())
+          + f"; summary {res['stdout'].splitlines()[-1:]}", flush=True)
+    check(all(gates.values()), f"dryrun D3 sweep: gates {gates}")
+    check(res.get("rise", 0) == 0 and res.get("launches", 0) == 0,
+          f"dryrun D3 sweep: the card was used: {res}")
+    records = {}
+    for arch, shape in DRYRUN_SWEEP_CELLS:
+        key = f"{arch}__{shape}__16x16"
+        with open(os.path.join(out, key + ".json")) as f:
+            records[key] = json.load(f)
+    dryrun_checks(records, want, label="D3", faults={})
+    for fault, (fspec, fres, fout) in faulted.items():
+        gate = DRYRUN_SWEEP_FAULTS[fault]
+        fgates = dryrun_sweep_gates(fspec, fres, fout)
+        broke = sorted(g for g, ok in fgates.items() if not ok)
+        print(f"dryrun planted fault {fault} on the sweep: broke {broke}",
+              flush=True)
+        check(gate in broke, f"dryrun sweep fault {fault}: the {gate} "
+              f"gate held: {fgates}")
 
 
 def dryrun_d2(records) -> None:
@@ -6747,14 +7241,81 @@ def dryrun_d2(records) -> None:
         check(lo <= r <= hi, f"dryrun D2 predict_cell_des: ratio {r}")
 
 
+def dryrun_cli_child(cell, out, env):
+    arch, shape, multi_pod, overrides, tag = cell
+    argv = ["--arch", arch, "--shape", shape, "--out", out]
+    argv += ["--multi-pod"] if multi_pod else []
+    argv += ["--tag", tag] if tag else []
+    for k, v in overrides.items():
+        argv += ["--set", f"{k}={v}"]
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def dryrun_answer(proc, label):
+    """The last stdout line of a finished child, as JSON."""
+    stdout, stderr = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"dryrun {label}: the child exited "
+          f"{proc.returncode}: {stderr[-2000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+# D3's sweep children, started by ``dryrun_sweeps_start`` (from ``main``
+# before the family phases, so that their serial children run beside
+# them) and collected by ``dryrun_phase``
+DRYRUN_SWEEPS = {}
+
+
+def dryrun_env():
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def dryrun_sweeps_start() -> None:
+    """Start D3's two sweep children (the cut sweep and its planted fault)
+    in a directory of their own, unless they are running already."""
+    if DRYRUN_SWEEPS:
+        return
+    tmp = tempfile.mkdtemp()
+    spec = dryrun_sweep_spec(os.path.join(tmp, "d3"))
+    fspecs = {f: dryrun_sweep_spec(os.path.join(tmp, f), fault=f)
+              for f in DRYRUN_SWEEP_FAULTS}
+    env = dryrun_env()
+    DRYRUN_SWEEPS.update(
+        tmp=tmp, spec=spec, fspecs=fspecs, t0=time.perf_counter(),
+        procs={f: dryrun_sweep_child(sp, env)
+               for f, sp in [(None, spec), *fspecs.items()]})
+    # a phase that fails before dryrun_phase still stops them
+    atexit.register(dryrun_sweeps_stop)
+    print("dryrun D3: the sweep children started", flush=True)
+
+
+def dryrun_sweeps_stop() -> None:
+    """Kill D3's sweep children that still run, and their children, and
+    remove their directory."""
+    for proc in DRYRUN_SWEEPS.get("procs", {}).values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+    shutil.rmtree(DRYRUN_SWEEPS.get("tmp", ""), ignore_errors=True)
+
+
 def dryrun_phase(dev):
-    """(r) the dry-run launcher: D1 ``python -m repro_torch.launch.dryrun``'s
-    ``main`` for every DRYRUN_CELLS cell, one child process a cell, all at
-    once, each reporting its wall time, its card's rise in allocation (0
-    bytes) and the kernels' launches (0); the records against
-    REFERENCE_DRYRUN and the skip record (``dryrun_checks``), with
-    DRYRUN_FAULTS planted here; D2 the record consumers on the records
-    (``dryrun_d2``).  Returns the launches by path (0 each)."""
+    """(r) the dry-run launcher.  D1: ``python -m repro_torch.launch.dryrun``'s
+    ``main`` for every DRYRUN_CELLS cell, one child a cell, all at once,
+    each reporting its wall time, its card's rise in allocation (0 bytes)
+    and the kernels' launches (0); meanwhile this process runs
+    DRYRUN_FAULTS on their cells.  Then D1's records and the skip record
+    against REFERENCE_DRYRUN (``dryrun_checks``) and D2, the record
+    consumers on them (``dryrun_d2``).  D3: the sweep (``--all``) over the
+    cut list in one child (which reports its own rise and launches; its
+    children count on meta tensors, as D1's, with no card visible) and
+    the sweep's planted
+    fault in another, both started by ``dryrun_sweeps_start`` (here, if
+    ``main`` did not start them earlier); their file set, skip, failure
+    and summary, and the nine records against REFERENCE_DRYRUN
+    (``dryrun_sweep_checks``).  Returns the launches by path (0 each)."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.maxmin_fair import masked_min_rows
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -6763,56 +7324,65 @@ def dryrun_phase(dev):
     for kernel in counted:
         kernel.launches = 0
     t_phase = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = []
-        for cell in DRYRUN_CELLS:
-            arch, shape, multi_pod, overrides, tag = cell
-            argv = ["--arch", arch, "--shape", shape, "--out", tmp]
-            argv += ["--multi-pod"] if multi_pod else []
-            argv += ["--tag", tag] if tag else []
-            for k, v in overrides.items():
-                argv += ["--set", f"{k}={v}"]
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", DRYRUN_CHILD, *argv],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=env))
+    dryrun_sweeps_start()
+    sweeps = DRYRUN_SWEEPS["procs"]
+    spec, fspecs = DRYRUN_SWEEPS["spec"], DRYRUN_SWEEPS["fspecs"]
+    with tempfile.TemporaryDirectory() as d1:
+        procs = [dryrun_cli_child(cell, d1, dryrun_env())
+                 for cell in DRYRUN_CELLS]
         records = {}
         try:
+            with device_rise(dev) as rise:
+                t0 = time.perf_counter()
+                faults = dryrun_fault_gates(REFERENCE_DRYRUN)
+                print(f"dryrun planted faults: {len(faults)} cells counted "
+                      f"here in {time.perf_counter() - t0:.3f} s", flush=True)
             for cell, proc in zip(DRYRUN_CELLS, procs):
-                stdout, stderr = proc.communicate(timeout=600)
                 key = dryrun_key(cell)
-                check(proc.returncode == 0, f"dryrun D1 {key}: the CLI "
-                      f"exited {proc.returncode}: {stderr[-2000:]}")
-                res = json.loads(stdout.strip().splitlines()[-1])
+                res = dryrun_answer(proc, f"D1 {key}")
                 print(f"dryrun D1 {key}: CLI child wall {res['wall']:.3f} s,"
                       f" device rise {res['rise']} bytes, kernel launches "
                       f"{res['launches']}", flush=True)
                 check(res["rise"] == 0 and res["launches"] == 0,
                       f"dryrun D1 {key}: the card was used: {res}")
-                with open(os.path.join(tmp, key + ".json")) as f:
+                with open(os.path.join(d1, key + ".json")) as f:
                     records[key] = json.load(f)
+            print(f"dryrun D1: children done at "
+                  f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+            skip = run_cell(*DRYRUN_SKIP, False, d1)
+            check(skip == REFERENCE_DRYRUN_SKIP and not os.path.exists(
+                os.path.join(d1, dryrun_key((*DRYRUN_SKIP, False, {}, ""))
+                             + ".json")), f"dryrun skip record: {skip}")
+            for key, rec in records.items():
+                print(f"dryrun D1 {key}: count_s={rec['count_s']:.3f}",
+                      flush=True)
+            with device_rise(dev) as rise_checks:
+                dryrun_checks(records, REFERENCE_DRYRUN, faults=faults)
+                dryrun_d2(records)
+            answers = {f: dryrun_answer(p, f"D3 sweep {f or ''}".strip())
+                       for f, p in sweeps.items()}
+            now = time.perf_counter()
+            print(f"dryrun D3: sweeps done at {now - t_phase:.3f} s into "
+                  f"the phase, {now - DRYRUN_SWEEPS['t0']:.3f} s after they "
+                  "started", flush=True)
+            with device_rise(dev) as rise_sweep:
+                dryrun_sweep_checks(
+                    spec, answers[None], spec["out"], REFERENCE_DRYRUN,
+                    {f: (s, answers[f], s["out"]) for f, s in fspecs.items()})
         finally:
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
                 proc.communicate()
-        skip = run_cell(*DRYRUN_SKIP, False, tmp)
-        check(skip == REFERENCE_DRYRUN_SKIP and not os.path.exists(
-            os.path.join(tmp, dryrun_key((*DRYRUN_SKIP, False, {}, ""))
-                         + ".json")), f"dryrun skip record: {skip}")
-    for key, rec in records.items():
-        print(f"dryrun D1 {key}: count_s={rec['count_s']:.3f}", flush=True)
-    with device_rise(dev) as rise:
-        dryrun_checks(records, REFERENCE_DRYRUN)
-        dryrun_d2(records)
+            dryrun_sweeps_stop()
     launches = {k.__name__: k.launches for k in counted}
+    rises = [rise["bytes"], rise_checks["bytes"], rise_sweep["bytes"]]
     print(f"dryrun: phase wall {time.perf_counter() - t_phase:.3f} s, "
-          f"device rise over the checks {rise['bytes']} bytes, kernel "
-          f"launches {launches}; card {card_line()}", flush=True)
-    check(rise["bytes"] == 0 and not any(launches.values()),
-          f"dryrun: the card was used: {rise} {launches}")
+          f"device rise over the faults, the checks and D3's checks "
+          f"{rises} bytes, kernel launches {launches}; card {card_line()}",
+          flush=True)
+    check(not any(rises) and not any(launches.values()),
+          f"dryrun: the card was used: {rises} {launches}")
     return {(k, "dryrun"): 0 for k in ("flash_attention_fwd", "ssd_scan")}
 
 
@@ -7015,7 +7585,11 @@ def main() -> int:
     # qwen2-0.5b training step against the host CPU's (no kernel); then
     # the training loop at full width, resumed, and its launcher (no kernel);
     # then the dry-run's abstract trees and batches (no kernel); then the
-    # sharding rules and spec trees, per-device bytes and blocks (no kernel)
+    # sharding rules and spec trees, per-device bytes and blocks (no kernel);
+    # then the dry-run launcher (no kernel), whose sweep children (D3: host
+    # Python on meta tensors, one busy core, serially) start here and run
+    # beside the phases before it
+    dryrun_sweeps_start()
     for phase in (moe_phase, vlm_phase, flash80_phase, stablelm_phase,
                   hybrid_phase, encdec_phase, launch_phase, ckpt_phase,
                   train_phase, train_loop_phase, api_phase, sharding_phase,

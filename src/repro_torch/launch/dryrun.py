@@ -7,8 +7,9 @@ Usage:
         --multi-pod
     python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k \\
         --set force_scheme=dp --tag dp
+    python -m repro_torch.launch.dryrun --all [--force] --out DIR
 
-Port of ``repro.launch.dryrun``'s ``run_cell`` and its CLI.  The
+Port of ``repro.launch.dryrun``: ``run_cell``, ``sweep`` and the CLI.  The
 reference lowers and compiles the cell on 256 or 512 forced host devices
 and reads FLOPs, bytes and collectives off the partitioned HLO.  The
 port has no XLA program.  Its record comes from the port's own step
@@ -27,18 +28,28 @@ A decode step is counted on a copy of the cache: the reference's decode
 is a function from a cache to a new one, the port's writes its cache in
 place, and the record describes the function.
 
-``--all`` (the reference's sweep, one child process a cell) is not
-ported yet: it exits 2, and so does ``--force``, which in the reference
-only makes the sweep redo cells that have a record.
+The count is one device's: the work over the devices that hold distinct
+shares of it (``work_replicas``), each persistent leaf (the parameters,
+the cache, the optimizer state) and its views and copies at the share
+``shard_shape`` gives it under the cell's rules, and the decode value
+product split as the reference's partitioner splits it (``value_split``).
+
+``--all`` is the reference's sweep (``sweep``): every arch x shape x
+mesh, one child process a cell, serially; ``--force`` redoes the cells
+it finds recorded.  Without ``--all``, ``--force`` does nothing, as in
+the reference.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
+import subprocess
 import sys
 import traceback
 from pathlib import Path
+from typing import Callable, Optional
 
 import torch
 
@@ -51,13 +62,16 @@ from repro_torch.models.api import (abstract_cache, abstract_params,
 from repro_torch.roofline import count as counting
 from repro_torch.roofline.analysis import roofline_terms
 from repro_torch.sharding import collectives
-from repro_torch.sharding.specs import (make_rules, sharded_bytes,
+from repro_torch.sharding.specs import (_axes, leaf_shards, legalize,
+                                        make_rules, resolve, sharded_bytes,
                                         tree_shardings)
 from repro_torch.train.step import make_train_step, state_specs
 
 _NO_PROGRAM = ("no XLA program: repro_torch counts its own step on meta "
                "tensors (repro_torch.roofline.count)")
 SKIP_REASON = "long_500k requires sub-quadratic attention (see DESIGN.md §5)"
+# the sweep's own skip record says it otherwise
+SWEEP_SKIP_REASON = "long_500k needs sub-quadratic attention"
 
 
 def _cell_out(out_dir: Path, arch: str, shape: str, multi_pod: bool,
@@ -96,14 +110,62 @@ def _step(cfg, shape, model):
         return ((lambda: model.prefill(params, batch,
                                        max_len=shape.seq_len)),
                 params, persistent)
-    cache = model.init_cache(shape.global_batch, shape.seq_len,
-                             enc_len=cfg.encoder_seq or 0)
+    # the persistent cache's own leaves, with the Python int ``len`` that
+    # ``Model.decode`` counts with
+    cache = dict(persistent[1][0], len=0)
 
     def decode():
         copy = map_with_keys(lambda _, v: v.clone()
                              if isinstance(v, torch.Tensor) else v, cache)
         return model.decode(params, copy, batch["tokens"])
     return decode, params, persistent
+
+
+def _batch_axes(rules, mesh, shape) -> tuple:
+    """The mesh axes the cell's batch splits over (``dp``, legalized)."""
+    return _axes(legalize(resolve(("dp",), rules), (shape.global_batch,),
+                          mesh)[0])
+
+
+def work_replicas(rules, mesh, shape) -> int:
+    """Devices that hold each share of the step's work: the product of
+    the mesh axes that split none of it.  The batch splits over the
+    ``dp`` axes that divide it, the model dims over the tensor-parallel,
+    sequence and (decode) cache-sequence axes; ``make_rules`` drops the
+    batch axes for a batch they do not divide (long_500k's one
+    sequence), and the work is then repeated over them."""
+    split = set(_batch_axes(rules, mesh, shape))
+    for name in ("tp", "tp_kv", "tp_rep", "sp") + (
+            ("kv_seq",) if shape.kind == "decode" else ()):
+        split.update(rules.get(name, ()))
+    return math.prod(n for a, n in mesh.shape.items() if a not in split)
+
+
+def value_split(cfg, shape, rules, mesh) -> Optional[Callable]:
+    """The reference's partitioner in a decode step whose batch leaves
+    the ``data`` axis idle, as its HLO shows: every head's scores are
+    computed over the device's part of the cache (its sequence on the
+    ``kv_seq`` axes), and the product of the probabilities with the
+    values then splits the tensor-parallel heads over ``data``.  Returns
+    ``(func, args) -> parts`` for ``count``'s ``split`` (the value
+    product, the one that contracts over the cache's length, into
+    ``data``'s size), or None where no product splits so."""
+    if shape.kind != "decode" or cfg.attention_free or \
+            "data" in _batch_axes(rules, mesh, shape):
+        return None
+    heads = (cfg.n_kv_heads if rules["tp_kv"] else
+             cfg.n_heads // cfg.n_kv_heads if rules["tp_rep"] else 0)
+    parts = mesh.shape["data"]
+    if not heads or heads % parts:
+        return None
+    length = shape.seq_len
+
+    def split(func, args):
+        a, b = args[0], args[1]
+        return parts if (func._overloadpacket is torch.ops.aten.bmm
+                         and a.shape[-1] == length
+                         and b.shape[-2] == length) else 1
+    return split
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
@@ -123,11 +185,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                        global_batch=shape.global_batch)
     model = build_model(cfg, device="meta")
     fn, params, persistent = _step(cfg, shape, model)
-    persistent_bytes = sum(
-        sharded_bytes(tree, tree_shardings(specs, mesh, rules, tree), mesh)
-        for tree, specs in persistent)
+    layouts = [(tree, tree_shardings(specs, mesh, rules, tree))
+               for tree, specs in persistent]
+    persistent_bytes = sum(sharded_bytes(tree, sh, mesh)
+                           for tree, sh in layouts)
 
+    shards = [(leaf, math.prod(shard) / max(leaf.numel(), 1))
+              for tree, sh in layouts
+              for leaf, shard in leaf_shards(tree, sh, mesh)]
     hh = counting.count(fn, chips=chips,
+                        replicas=work_replicas(rules, mesh, shape),
+                        shards=shards,
+                        split=value_split(cfg, shape, rules, mesh),
                         matcher=counting.kernel_matcher(cfg, shape))
     param_specs = model.param_specs()
     coll_by_op = collectives.step_collectives(
@@ -181,6 +250,58 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
     return rec
 
 
+def sweep(out_dir: Path, multi_pod_too: bool = True, force: bool = False):
+    """Every arch x shape x mesh cell, one child process
+    (``python -m repro_torch.launch.dryrun``) a cell, serially, as the
+    reference's sweep.  A cell whose record reads ``ok`` or ``skipped``
+    counts as done and is not redone unless ``force``; an inapplicable
+    shape gets the sweep's own skip record; a child that exits non-zero
+    leaves a failure record with the tails of its output.  The configs
+    are read from ``repro_torch.configs`` at the call, so a caller can
+    cut the list in this process."""
+    from repro_torch.configs import (SHAPES, get_config, list_archs,
+                                     shape_applicable)
+    cells = []
+    for arch in list_archs():
+        for shape in SHAPES:
+            for mp in ([False, True] if multi_pod_too else [False]):
+                cells.append((arch, shape, mp))
+    done = failed = skipped = 0
+    for arch, shape, mp in cells:
+        out = _cell_out(out_dir, arch, shape, mp)
+        mesh = "2x16x16" if mp else "16x16"
+        if out.exists() and not force:
+            prev = json.loads(out.read_text())
+            if prev.get("ok") or prev.get("skipped"):
+                done += 1
+                continue
+        if not shape_applicable(get_config(arch), SHAPES[shape]):
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(
+                {"arch": arch, "shape": shape, "skipped": True,
+                 "mesh": mesh, "reason": SWEEP_SKIP_REASON}))
+            skipped += 1
+            continue
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out_dir)]
+        if mp:
+            cmd.append("--multi-pod")
+        print(f"[sweep] {arch} x {shape} x {mesh}", flush=True)
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=7200)
+        if r.returncode != 0:
+            failed += 1
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(
+                {"arch": arch, "shape": shape, "ok": False, "mesh": mesh,
+                 "error": r.stdout[-2000:] + r.stderr[-4000:]}))
+            print(f"[sweep] FAILED {arch} x {shape}:\n{r.stderr[-1500:]}",
+                  flush=True)
+        else:
+            done += 1
+    print(f"[sweep] done={done} failed={failed} skipped={skipped}")
+
+
 def parse_overrides(pairs) -> dict:
     """``key=value`` pairs, each value an int, else a float, else the
     string (the reference's ``--set`` parsing)."""
@@ -204,20 +325,18 @@ def main(argv=None):
     ap.add_argument("--shape")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true",
-                    help="the full sweep (not yet ported)")
+                    help="the full sweep, one child process a cell")
     ap.add_argument("--force", action="store_true",
-                    help="redo recorded cells in --all (not yet ported)")
+                    help="redo cells --all finds recorded")
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--tag", default="", help="suffix for the output record")
     ap.add_argument("--set", action="append", default=[],
                     help="config override key=value (perf hillclimb)")
     args = ap.parse_args(argv)
-    if args.all or args.force:
-        print(f"[dryrun] {'--all' if args.all else '--force'}: the sweep "
-              "is not yet ported; run one cell with --arch and --shape",
-              file=sys.stderr)
-        raise SystemExit(2)
     overrides = parse_overrides(getattr(args, "set"))
+    if args.all:
+        sweep(Path(args.out), force=args.force)
+        return
     try:
         run_cell(args.arch, args.shape, args.multi_pod, Path(args.out),
                  overrides=overrides or None, tag=args.tag)

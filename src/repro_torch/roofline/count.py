@@ -21,7 +21,10 @@ What each op adds, by class:
   one FLOP per output element, so that the casts, exps and masks of an
   eager step are not free; against the products they are a few percent.
 * **data movement** (copies, casts, concatenation, gathers, scatters,
-  sorts, cumulative sums; ``_MOVES``), and factories: bytes only.
+  sorts, cumulative sums; ``_MOVES``), and factories: bytes only.  A
+  move is classed before the tags, so a copy tagged ``pointwise``
+  (``clone``, which an einsum makes of a permuted operand and the decode
+  count makes of the cache) computes nothing.
 * **views and metadata** (every op whose schema returns an alias of an
   input, ``detach``, ``_unsafe_view``, a host read of a 0-d tensor):
   nothing; they move no memory.
@@ -48,10 +51,21 @@ programs is float32), and the port's record is read in place of the
 reference's by the same predictions.  A TPU program would move a
 bfloat16 tensor in half the bytes.
 
-Per-device figures are the global ones over ``chips``: the global step is
-counted once and every chip is taken to do an equal share of it (the
-reference's multi-pod and single-pod FLOP totals are equal, so no compute
-is replicated there).
+Per-device figures.  The global step is counted once.  Every op's FLOPs
+and an activation's bytes are the global ones over the devices that hold
+distinct work, ``chips / replicas`` (``count``'s ``replicas``: how many
+devices repeat each share, such as the data axis a batch of one leaves
+idle).  A persistent tensor (``shards``: each parameter, cache or
+optimizer leaf with the share of it one device holds, its
+``shard_shape`` over its shape), any view of one and any copy or cast of
+one count at that share: a leaf replicated over an axis is read whole on
+every device of it, as the partitioned program reads it.  XLA:CPU
+normalises a bfloat16 argument to float32 once a step, so a persistent
+leaf stored below ``FLOAT_BYTES`` an element adds that conversion at its
+first read: its shard read at its own size and written at 4 bytes.
+``split`` divides a product's FLOPs further where the reference's
+partitioner splits that product over an axis the rest of the step leaves
+idle (``launch.dryrun.value_split``).
 
 The kernel adjustment follows the reference's (``dryrun.py:181-204``):
 each op's output dims go to the cell's matcher; an op whose first
@@ -68,7 +82,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -114,6 +128,15 @@ _FREE = {_ATEN.detach, _ATEN.lift_fresh, _ATEN.sym_size, _ATEN.sym_stride,
          _ATEN._local_scalar_dense, _ATEN._unsafe_view}
 
 
+# a copy or cast of a persistent tensor is laid out as its source
+_COPIES = {_ATEN._to_copy, _ATEN.clone, _ATEN.copy, _ATEN.lift_fresh_copy}
+
+
+def _storage_id(t: torch.Tensor) -> int:
+    """The same for a tensor and every view of it (meta tensors too)."""
+    return t.untyped_storage()._cdata
+
+
 def _distinct_elements(t: torch.Tensor) -> int:
     """Elements ``t`` addresses: a dim of stride 0 (a broadcast) counts
     once."""
@@ -140,17 +163,45 @@ def _is_view(func) -> bool:
 
 
 class OpCounter(TorchDispatchMode):
-    """Adds up FLOPs and bytes of every aten op run under it (see the
-    module docstring for the rules); ops whose first output's dims
-    ``matcher`` accepts are also summed apart."""
+    """Adds up one device's FLOPs and bytes of every aten op run under it
+    (see the module docstring for the rules): an activation at ``share``
+    of its global size, each tensor of ``shards`` (and its views, copies
+    and casts) at its own share, a product's FLOPs over ``split(func,
+    args)`` parts where ``split`` is given.  Ops whose first output's
+    dims ``matcher`` accepts are also summed apart."""
 
-    def __init__(self, matcher: Optional[Callable] = None):
+    def __init__(self, matcher: Optional[Callable] = None,
+                 share: float = 1.0, shards: Iterable = (),
+                 split: Optional[Callable] = None):
         super().__init__()
         self.matcher = matcher
+        self.share = share
+        self.split = split
+        self._shards: Dict[int, Tuple[float, torch.Tensor]] = {}
+        # persistent leaves stored below FLOAT_BYTES an element and not
+        # read yet: {storage id: bytes of their conversion to float32}
+        self._unconverted: Dict[int, float] = {}
+        for t, share_of_t in shards:
+            self._hold(t, share_of_t)
+            size = t.dtype.itemsize
+            if t.dtype.is_floating_point and size < FLOAT_BYTES:
+                self._unconverted[_storage_id(t)] = \
+                    t.numel() * (size + FLOAT_BYTES) * share_of_t
         self.flops = 0.0
         self.bytes = 0.0
         self.matched_bytes = 0.0
         self.matched_dot_flops = 0.0
+
+    def _hold(self, t: torch.Tensor, share: float) -> None:
+        # the tensor is kept, so its storage's id is not reused
+        self._shards[_storage_id(t)] = (share, t)
+
+    def _share_of(self, t: torch.Tensor) -> float:
+        held = self._shards.get(_storage_id(t))
+        return self.share if held is None else held[0]
+
+    def _bytes(self, t: torch.Tensor) -> float:
+        return _tensor_bytes(t) * self._share_of(t)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -158,19 +209,21 @@ class OpCounter(TorchDispatchMode):
         packet = func._overloadpacket
         if packet in _FREE or _is_view(func):
             return out
-        if packet in flop_registry:
+        if packet in _MOVES or not any(
+                isinstance(t, torch.Tensor)
+                for t in tree_leaves((args, kwargs))):
+            flops, dot = 0.0, False
+        elif packet in flop_registry:
             flops = float(flop_registry[packet](*args, **kwargs,
                                                 out_val=out))
             dot = True
+            if self.split is not None:
+                flops /= self.split(func, args)
         elif (packet in _ELEMENTWISE or torch.Tag.pointwise in func.tags
               or torch.Tag.reduction in func.tags):
             flops = float(sum(t.numel() for t in tree_leaves(out)
                               if isinstance(t, torch.Tensor)))
             dot = False
-        elif packet in _MOVES or not any(
-                isinstance(t, torch.Tensor)
-                for t in tree_leaves((args, kwargs))):
-            flops, dot = 0.0, False
         else:
             raise NotImplementedError(
                 f"roofline.count: no rule for {func} (add it to the "
@@ -178,8 +231,15 @@ class OpCounter(TorchDispatchMode):
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        nbytes = float(sum(_tensor_bytes(t) for t in ins)
-                       + sum(_tensor_bytes(t) for t in outs))
+        if packet in _COPIES and ins and outs and \
+                _storage_id(ins[0]) in self._shards and \
+                outs[0].shape == ins[0].shape:
+            self._hold(outs[0], self._share_of(ins[0]))
+        nbytes = float(sum(self._bytes(t) for t in ins)
+                       + sum(self._bytes(t) for t in outs))
+        for t in ins:
+            nbytes += self._unconverted.pop(_storage_id(t), 0.0)
+        flops *= self.share
         self.flops += flops
         self.bytes += nbytes
         if self.matcher is not None and outs \
@@ -190,19 +250,24 @@ class OpCounter(TorchDispatchMode):
         return out
 
 
-def count(fn: Callable, *args, chips: int = 1,
+def count(fn: Callable, *args, chips: int = 1, replicas: int = 1,
+          shards: Iterable = (), split: Optional[Callable] = None,
           matcher: Optional[Callable] = None, **kwargs) -> Dict:
     """Run ``fn(*args, **kwargs)`` (on meta tensors) under an
-    ``OpCounter`` and return per-device ``flops`` and ``bytes`` (the
-    global counts over ``chips``), the matched ``tile_bytes`` and
-    ``tile_dot_flops`` per device, and the wall time ``count_s``."""
-    counter = OpCounter(matcher)
+    ``OpCounter`` and return per-device ``flops`` and ``bytes``, the
+    matched ``tile_bytes`` and ``tile_dot_flops`` per device, and the wall
+    time ``count_s``.  A device does the global work over ``chips /
+    replicas`` (``replicas`` devices hold each share); ``shards`` pairs
+    each persistent tensor with the share of it one device holds, which
+    its views and copies are counted at."""
+    counter = OpCounter(matcher, share=replicas / chips, shards=shards,
+                        split=split)
     t0 = time.perf_counter()
     with counter:
         fn(*args, **kwargs)
-    return {"flops": counter.flops / chips, "bytes": counter.bytes / chips,
-            "tile_bytes": counter.matched_bytes / chips,
-            "tile_dot_flops": counter.matched_dot_flops / chips,
+    return {"flops": counter.flops, "bytes": counter.bytes,
+            "tile_bytes": counter.matched_bytes,
+            "tile_dot_flops": counter.matched_dot_flops,
             "count_s": time.perf_counter() - t0}
 
 

@@ -59,8 +59,14 @@ The terms, in the order ``step_collectives`` adds them:
 4. **Experts (ep).**  Where the tokens are not split over the expert
    axes, dispatch is local and the combine is a product over sharded
    expert slots (all-reduce, as term 2, and again for the dispatch's
-   input gradient); where they are, the slots travel by all-to-all, once
-   to dispatch and once to combine, per pass.
+   input gradient).  Where they are (the sp scheme, whose sequence axis
+   holds the experts), the GShard einsum dispatch runs on whole
+   sequences, as the reference's HLO shows: per layer and pass the
+   device's sequences are all-gathered along the sequence axes, and so,
+   per routing round, are the int32 expert counters the capacity cumsum
+   runs over, the float32 slot one-hots and the gate weights; the
+   combine's partial sums are all-reduced over the expert axes.  The
+   backward gathers the output's gradient and all-reduces the input's.
 5. **Mamba-2 channels.**  The tensor-parallel ``d_inner`` channels meet
    the replicated B and C channels in one concatenation in prefill (the
    conv cache's tail) and decode (the conv window, and its weights): the
@@ -71,10 +77,12 @@ The terms, in the order ``step_collectives`` adds them:
    stored sharded on, all-reduced over the rest.  The ``pod`` axis of the
    2x16x16 mesh is a data axis: it enters here and in the batch split.
 
-Biases and depthwise convolution taps (``_ELEMENTWISE``) act per
-channel and contract nothing; any other parameter leaf of rank 2 or more
-without a role in ``_PRODUCTS`` raises, so a new layer is classed before
-a record counts it.
+A decode step applies neither the encoder nor the cross-attention's K
+and V weights (the cache holds the encoder's keys and values), so their
+leaves add nothing there.  Biases and depthwise convolution taps
+(``_ELEMENTWISE``) act per channel and contract nothing; any other
+parameter leaf of rank 2 or more without a role in ``_PRODUCTS`` raises,
+so a new layer is classed before a record counts it.
 
 Left out: scalars (the loss, the gradient norm), and the other
 resharding an XLA partitioner may choose on its own between constraints
@@ -86,6 +94,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Iterator, Optional, Tuple
 
+from repro_torch.models.moe import capacity
 from repro_torch.roofline.analysis import ring_wire_bytes
 from repro_torch.roofline.count import FLOAT_BYTES, priced_size
 
@@ -178,11 +187,20 @@ class _Step:
             return cfg.num_layers // cfg.hybrid_period
         return 1
 
+    @staticmethod
+    def encoder_side(path) -> bool:
+        """The encoder's leaves and the cross-attention's K and V weights,
+        which act on the encoder's frames."""
+        return path[0] == "enc_layers" or (
+            len(path) > 2 and path[1] == "cross" and path[-1] in ("wk", "wv"))
+
+    def applies(self, path) -> bool:
+        """Whether the step applies the leaf: a decode step reads the
+        encoder's keys and values from the cache."""
+        return not (self.kind == "decode" and self.encoder_side(path))
+
     def leaf_tokens(self, path) -> int:
-        if path[0] == "enc_layers" or (len(path) > 2 and path[1] == "cross"
-                                       and path[-1] in ("wk", "wv")):
-            return self.enc_tokens
-        return self.tokens
+        return self.enc_tokens if self.encoder_side(path) else self.tokens
 
 
 def _param_terms(t: _Tally, st: _Step, rules: Rules, logical_tree,
@@ -192,6 +210,8 @@ def _param_terms(t: _Tally, st: _Step, rules: Rules, logical_tree,
     vocab_kept = bool(resolve(("dp", "sp", "vocab"), rules)[2])
     for path, logical, legal, leaf in _leaves(logical_tree, legal_tree,
                                               params):
+        if not st.applies(path):
+            continue
         stacked = path[0] in _STACKS
         n_stack = leaf.shape[0] if stacked else 1
         dims = tuple(leaf.shape[1:] if stacked else leaf.shape)
@@ -316,9 +336,17 @@ def _expert_terms(t: _Tally, st: _Step, rules: Rules) -> None:
         if st.train:
             t.add("all-reduce", x, ep, mesh, cfg.num_layers)
         return
-    slots = x * e.top_k * e.capacity_factor
+    # GShard on whole sequences: gathered, their combine all-reduced
+    n = cfg.num_layers
+    whole = st.b_loc * st.s_full
+    seq = whole * cfg.d_model * FLOAT_BYTES
     passes = st.passes + (1 if st.train else 0)
-    t.add("all-to-all", slots, ep, mesh, 2 * cfg.num_layers * passes)
+    t.add("all-gather", seq, st.sp, mesh, n * passes)
+    t.add("all-reduce", seq, ep, mesh, n * passes)
+    # per routing round: expert counters (int32), slot one-hots, gates
+    for per_token in (e.num_experts, capacity(cfg, st.s_full), 1):
+        t.add("all-gather", whole * per_token * 4, st.sp, mesh,
+              n * st.passes * e.top_k)
 
 
 def _ssm_terms(t: _Tally, st: _Step, rules: Rules) -> None:

@@ -241,11 +241,17 @@ def shard_shape(spec: Spec, shape, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def leaf_shards(abs_tree, shardings, mesh) -> List[Tuple[Any, Tuple]]:
+    """(leaf, its ``shard_shape``) for every leaf of ``abs_tree`` laid out
+    by ``shardings`` (``tree_shardings``' answer for it) on ``mesh``."""
+    return [(leaf, shard_shape(spec, tuple(leaf.shape), mesh))
+            for spec, leaf in _pairs(shardings, abs_tree)]
+
+
 def sharded_bytes(abs_tree, shardings, mesh) -> int:
     """Exact persistent bytes per device of ``abs_tree`` laid out by
-    ``shardings`` (``tree_shardings``' answer for it) on ``mesh``: each
-    leaf's ``shard_shape`` elements times its element size, summed (the
-    reference's dry-run ``sharded_bytes``)."""
-    return sum(math.prod(shard_shape(spec, tuple(leaf.shape), mesh))
-               * leaf.element_size()
-               for spec, leaf in _pairs(shardings, abs_tree))
+    ``shardings`` on ``mesh``: each leaf's ``shard_shape`` elements times
+    its element size, summed (the reference's dry-run
+    ``sharded_bytes``)."""
+    return sum(math.prod(shard) * leaf.element_size()
+               for leaf, shard in leaf_shards(abs_tree, shardings, mesh))

@@ -19,7 +19,6 @@ The gates are ``chip_smoke.py``'s (``dryrun_gates``), and so are the
 reference's figures it carries (``REFERENCE_DRYRUN``), held here to the
 child's.  Three planted faults each break their gate.
 """
-import importlib.util
 import json
 import math
 import os
@@ -34,15 +33,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import load_record, predict_cell, whatif
 from repro_torch.launch import dryrun
 from repro_torch.roofline import count as count_mod
-from torch_reference import ROOT, run_reference
+from torch_reference import MAKE_MESH_ALIAS, ROOT, load_chip_smoke, \
+    run_reference
 
-REF_CHILD = r"""
-import jax
-_make_mesh = jax.make_mesh
-def make_mesh(shape, axes, *args, **kwargs):
-    kwargs.setdefault("axis_types", (jax.sharding.AxisType.Auto,) * len(axes))
-    return _make_mesh(shape, axes, *args, **kwargs)
-jax.make_mesh = make_mesh
+REF_CHILD = MAKE_MESH_ALIAS + r"""
 import contextlib, io, tempfile
 from pathlib import Path
 from repro.launch import dryrun
@@ -60,17 +54,12 @@ OUT["jax"] = jax.__version__
 """
 
 
-def _script():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    return script
-
-
-SCRIPT = _script()
+SCRIPT = load_chip_smoke()
 CELLS = SCRIPT.DRYRUN_CELLS
 KEYS = [SCRIPT.dryrun_key(c) for c in CELLS]
+# D3's cells (the sweep's), whose reference records the constants carry
+SWEEP_CELLS = [(a, s, False, {}, "") for a, s in SCRIPT.DRYRUN_SWEEP_CELLS]
+REF_KEYS = KEYS + [SCRIPT.dryrun_key(c) for c in SWEEP_CELLS]
 
 
 def _run(cell, out_dir):
@@ -88,7 +77,7 @@ def records(tmp_path_factory):
 
     def child():
         box["ref"] = run_reference(REF_CHILD, {
-            "cells": [list(c) for c in CELLS],
+            "cells": [list(c) for c in CELLS + SWEEP_CELLS],
             "skip": list(SCRIPT.DRYRUN_SKIP)}, timeout=900)
     thread = threading.Thread(target=child)
     thread.start()
@@ -98,7 +87,7 @@ def records(tmp_path_factory):
     finally:
         thread.join()
     ref = box["ref"]
-    return {"ref": {k: ref[k + ".json"] for k in KEYS}, "port": port,
+    return {"ref": {k: ref[k + ".json"] for k in REF_KEYS}, "port": port,
             "dir": out, "skip": ref["skip"], "files": ref["files"],
             "jax": ref["jax"]}
 
@@ -113,13 +102,14 @@ def _gates(records, key):
 
 
 def test_chip_constants_are_the_reference_records(records):
-    """``REFERENCE_DRYRUN`` is the child's records, summarised and with
-    ``predict_cell``'s step time; the what-ifs and the DES of D2 are the
-    reference records' too (jax 0.9.0, as the constants say)."""
+    """``REFERENCE_DRYRUN`` is the child's records of D1's and D3's cells,
+    summarised and with ``predict_cell``'s step time; the what-ifs and the
+    DES of D2 are the reference records' too (jax 0.9.0, as the constants
+    say)."""
     from repro_torch.core import predict_cell_des
     assert records["jax"] == "0.9.0"
     assert SCRIPT.REFERENCE_DRYRUN == {
-        k: _summary(records["ref"][k]) for k in KEYS}
+        k: _summary(records["ref"][k]) for k in REF_KEYS}
     ref_dir = records["dir"].parent / "ref"
     ref_dir.mkdir(exist_ok=True)
     for key in KEYS:
@@ -167,21 +157,29 @@ def test_skip_record(records, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-def test_set_parsing_and_tagged_file_name(records):
+def test_set_parsing_and_tagged_file_name(records, monkeypatch, capsys):
     """``--set`` parses int, then float, then str; ``--tag`` names the
-    file; ``--all`` and ``--force`` (which only the unported sweep
-    reads) exit 2 and write nothing."""
+    file; ``--all`` hands ``--out`` and ``--force`` to ``sweep``;
+    ``--force`` without ``--all`` is the reference's: it runs the cell
+    ``--arch`` names, and with no arch the run exits 1 and writes
+    nothing."""
     assert dryrun.parse_overrides(["a=3", "b=0.5", "c=dp", "d=1e3",
                                    "e=x=y"]) == {
         "a": 3, "b": 0.5, "c": "dp", "d": 1000.0, "e": "x=y"}
     assert records["port"][KEYS[2]]["overrides"] == {"force_scheme": "dp"}
     assert dryrun._cell_out(records["dir"], "qwen2-0.5b", "train_4k",
                             False, "dp").name == f"{KEYS[2]}.json"
-    for argv in (["--all"], ["--arch", "qwen2-0.5b", "--shape", "train_4k",
-                             "--force", "--out", str(records["dir"] / "x")]):
-        with pytest.raises(SystemExit) as exc:
-            dryrun.main(argv)
-        assert exc.value.code == 2
+    calls = []
+    monkeypatch.setattr(dryrun, "sweep",
+                        lambda out, force=False: calls.append((out, force)))
+    dryrun.main(["--all", "--force", "--out", str(records["dir"] / "x")])
+    dryrun.main(["--all", "--out", str(records["dir"] / "y")])
+    assert calls == [(records["dir"] / "x", True),
+                     (records["dir"] / "y", False)]
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["--force", "--out", str(records["dir"] / "x")])
+    assert exc.value.code == 1
+    assert "KeyError" in capsys.readouterr().err
     assert not (records["dir"] / "x").exists()
 
 
@@ -280,6 +278,31 @@ def test_count_rules():
         count_mod.count(lambda: torch.nonzero(a))
 
 
+def test_count_shares():
+    """One device's count: an activation at ``replicas / chips`` of its
+    global size; a persistent leaf, a view of it and a copy of it at its
+    own share, a bfloat16 leaf converted to float32 once (its shard read
+    at 2 bytes and written at 4); a product's FLOPs over ``split``'s
+    parts; a clone computes nothing."""
+    w = torch.empty(16, 8, device="meta")
+    h = torch.empty(16, 8, dtype=torch.bfloat16, device="meta")
+    x = torch.empty(4, 16, device="meta")
+    got = count_mod.count(lambda: x @ w[:, :4], chips=8, replicas=2,
+                          shards=[(w, 0.5)])
+    assert got["flops"] == 2 * 4 * 16 * 4 / 4
+    assert got["bytes"] == (4 * 16 + 4 * 4) * 4 / 4 + 16 * 4 * 4 * 0.5
+    got = count_mod.count(lambda: w.clone() + 1, chips=8,
+                          shards=[(w, 0.5)])
+    assert got["flops"] == 16 * 8 / 8
+    assert got["bytes"] == 16 * 8 * 4 * (0.5 * 3 + 1 / 8)
+    got = count_mod.count(lambda: (h[0] + 1, h[1] + 1), chips=4,
+                          shards=[(h, 0.25)])
+    assert got["bytes"] == 16 * 8 * (2 + 4) * 0.25 + 2 * 8 * 4 * (0.25 + 1 / 4)
+    got = count_mod.count(lambda: torch.bmm(x[None], w[None]), chips=2,
+                          split=lambda func, args: 4)
+    assert got["flops"] == 2 * 4 * 16 * 8 / 2 / 4
+
+
 def test_train_dryrun_through_its_child(tmp_path):
     """``python -m repro_torch.launch.train --arch qwen2-0.5b --dryrun``
     writes the train_4k record through its child and exits 0;
@@ -319,21 +342,31 @@ def test_predictions_on_the_port_records(records, tmp_path):
                         dryrun_dir=tmp_path).step_s > 0
 
 
+@pytest.fixture(scope="module")
+def fault_gates(records):
+    """Each planted fault's gates on its cell, from ``chip_smoke.py``'s
+    own runner (the faults are run once, here)."""
+    return SCRIPT.dryrun_fault_gates(SCRIPT.REFERENCE_DRYRUN)
+
+
 @pytest.mark.parametrize("fault", sorted(SCRIPT.DRYRUN_FAULTS))
-def test_planted_faults_break_their_gates(records, tmp_path, fault):
+def test_planted_faults_break_their_gates(records, fault_gates, tmp_path,
+                                          fault):
+    """The fault breaks its gate against the reference record of its cell;
+    without it the port's record of the cell passes that gate."""
     cell, gate = SCRIPT.DRYRUN_FAULTS[fault]
     key = SCRIPT.dryrun_key(cell)
-    with SCRIPT.dryrun_fault(fault):
-        rec = _run(cell, tmp_path)
+    assert not fault_gates[fault][gate][1], fault_gates[fault]
+    rec = records["port"].get(key) or _run(cell, tmp_path)
     gates = SCRIPT.dryrun_gates(_summary(rec), _summary(records["ref"][key]))
-    assert not gates[gate][1], gates
-    assert _gates(records, key)[gate][1]
+    assert gates[gate][1], gates
 
 
-def test_chip_dryrun_checks_on_the_cpu(records, capsys):
+def test_chip_dryrun_checks_on_the_cpu(records, fault_gates, capsys):
     """``chip_smoke.py``'s D1 checks on this process's records, every gate
     passing and each fault breaking its gate, as on the card."""
-    SCRIPT.dryrun_checks(records["port"], SCRIPT.REFERENCE_DRYRUN)
+    SCRIPT.dryrun_checks(records["port"], SCRIPT.REFERENCE_DRYRUN,
+                         faults=fault_gates)
     text = capsys.readouterr().out
     for fault, (_, gate) in SCRIPT.DRYRUN_FAULTS.items():
         assert f"planted fault {fault}" in text

@@ -2,6 +2,7 @@
 package, its entry points never fall back to the CPU on their own, and
 chip_smoke.py refuses to run without a card or without the repository."""
 import ast
+import json
 import os
 import pathlib
 import shutil
@@ -38,6 +39,7 @@ from repro_torch.top500 import (calibrate_against_des, predict_fleet,
                                 sample_list_path)
 from repro_torch.workloads import (get_workload, simulate_step_fast,
                                    step_time_traced, sweep_step)
+from torch_reference import load_chip_smoke
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -162,16 +164,49 @@ def test_every_module_imports_with_jax_blocked():
     + ["chip_smoke.py"]))
 def test_no_import_of_jax_or_reference(path):
     tree = ast.parse((ROOT / path).read_text())
+    for mod in _imports(tree):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            (path, mod)
+
+
+def _imports(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            mods = [a.name for a in node.names]
+            yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            mods = [node.module]
-        else:
+            yield node.module
+
+
+def test_chip_smoke_child_scripts_import_no_jax_or_reference():
+    """The child scripts ``chip_smoke.py`` holds as strings import neither
+    jax nor the reference, and no string there names a module of either.
+    The one child that imports a module by a name it is given
+    (``HOST_CALL``) refuses a name outside the port."""
+    children, by_name = 0, []
+    for node in ast.walk(ast.parse((ROOT / "chip_smoke.py").read_text())):
+        if not (isinstance(node, ast.Constant) and isinstance(node.value,
+                                                              str)):
             continue
-        for mod in mods:
-            top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+        assert node.value.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            node.value
+        if "import " in node.value:
+            try:
+                tree = ast.parse(node.value)
+            except SyntaxError:
+                continue
+            children += 1
+            by_name += ["import_module" in node.value]
+            for mod in _imports(tree):
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    mod
+    assert children >= 3 and sum(by_name) == 1
+    script = load_chip_smoke()
+    proc = subprocess.run(
+        [sys.executable, "-c", script.HOST_CALL,
+         json.dumps(["repro.configs", "list_archs", [], {}])],
+        capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=60)
+    assert proc.returncode != 0
+    assert "not a module of the port: repro.configs" in proc.stderr
 
 
 @pytest.mark.parametrize("path", [

@@ -3,10 +3,14 @@
 Installed jax no longer has ``jax.experimental.enable_x64``, which the
 reference imports, so the child aliases it to ``jax.enable_x64`` before
 the snippet imports ``repro``; the alias never touches the pytest
-process.  The snippet reads its JSON payload from ``PAYLOAD`` and puts
+process.  A snippet that drives the reference's dry-run starts with
+``MAKE_MESH_ALIAS`` too; ``JAX_ALIASES`` holds both, for a
+``sitecustomize.py`` that every interpreter of a child imports.  The
+snippet reads its JSON payload from ``PAYLOAD`` and puts
 its answer (plain JSON data) in ``OUT``.  Floats round-trip through
 JSON exactly.
 """
+import importlib.util
 import json
 import math
 import os
@@ -15,11 +19,28 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_PRELUDE = r"""
-import json, sys
+X64_ALIAS = r"""
 import jax, jax.experimental
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = jax.enable_x64
+"""
+
+# jax 0.9.0 makes ``jax.make_mesh``'s axes Explicit, on which the
+# reference's dry-run raises at its first sharding constraint: the alias
+# defaults them to Auto
+MAKE_MESH_ALIAS = r"""
+import jax
+_make_mesh = jax.make_mesh
+def make_mesh(shape, axes, *args, **kwargs):
+    kwargs.setdefault("axis_types", (jax.sharding.AxisType.Auto,) * len(axes))
+    return _make_mesh(shape, axes, *args, **kwargs)
+jax.make_mesh = make_mesh
+"""
+
+JAX_ALIASES = X64_ALIAS + MAKE_MESH_ALIAS
+
+_PRELUDE = X64_ALIAS + r"""
+import json, sys
 PAYLOAD = json.loads(sys.stdin.read())
 OUT = {}
 """
@@ -41,6 +62,16 @@ def run_reference(code: str, payload=None, timeout: int = 600) -> dict:
         cwd=ROOT, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` loaded as a module (a fresh one each call), for
+    its constants, gates and child scripts."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
 
 
 def assert_close(got, want, rtol=1e-12, path="$"):
